@@ -2,9 +2,12 @@
 
 Same commands (new | add | precompute | merge | newmerge | match | list |
 remove), same flags and defaults, same output lines.  Ingest and match run
-batched on one device with the host HashTable store and the host merge.
-Flags of the JAX CLI whose machinery is not ported yet (--device-store,
---ndev > 1, warmup, --listen, --windowed, --speed-sweep, --illustrate,
+batched on one device with the host HashTable store and the host merge;
+`--device-store` keeps the table on the device during new/add
+(models/ingest.py), and WAVs longer than `--stream-above` seconds are
+analysed in chunks of `--stream-chunk` frames (models/streaming.py).
+Flags of the JAX CLI whose machinery is not ported yet (--ndev > 1,
+warmup, --listen, --windowed, --speed-sweep, --illustrate,
 --illustrate-hpf, --sonify, --profile, wide --idbits tables) exit with
 status 2 and a message pointing at ROADMAP.md.
 
@@ -28,6 +31,9 @@ from audfprint_tpu.utils import formats
 from audfprint_tpu.utils.timing import Stages
 from audfprint_torch.match.matcher import Matcher
 from audfprint_torch.models.analyzer import Analyzer
+from audfprint_torch.models.ingest import DeviceIngest
+from audfprint_torch.ops import cuda_peaks as CP
+from audfprint_torch.ops import spectro as SP
 
 COMMANDS = ("new", "add", "precompute", "merge", "newmerge", "match",
             "list", "remove", "warmup")
@@ -89,7 +95,9 @@ def make_parser() -> argparse.ArgumentParser:
       help="track-id bits of the entry packing (0 = 32 - maxtimebits; "
            "wide tables past 32 bits are not ported)")
     a("--device-store", dest="device_store", action="store_true",
-      help="not yet ported")
+      help="new/add: keep the hash table on the device and fingerprint + "
+           "store each chunk in one pass; the saved database equals the "
+           "host store's")
     a("--speed-sweep", dest="speed_sweep", type=float, default=0.0,
       help="not yet ported")
     a("--windowed", type=float, default=0.0, metavar="SEC",
@@ -101,10 +109,13 @@ def make_parser() -> argparse.ArgumentParser:
     a("--listen", action="store_true", help="not yet ported")
     a("--stream-above", dest="stream_above", type=float, default=3600.0,
       metavar="SEC",
-      help="WAV inputs longer than SEC would stream; streaming is not yet "
-           "ported, so such inputs are refused (0 disables the check)")
+      help="WAV inputs longer than SEC analyse in fixed-size chunks with "
+           "O(chunk) host and device memory (carried HPF and envelope "
+           "state, exact sparse backward prune); 0 disables streaming")
     a("--stream-chunk", dest="stream_chunk", type=int, default=8192,
-      metavar="FRAMES", help="not yet ported")
+      metavar="FRAMES",
+      help="streamed ingest chunk size in analysis frames (~190 s at the "
+           "defaults); results are identical at any value")
     a("--profile", type=str, default=None, help="not yet ported")
     a("--json-metrics", dest="json_metrics", type=str, default=None,
       help="write per-stage timing/counters JSON to this file")
@@ -116,7 +127,6 @@ def _unported(args) -> str | None:
     checks = [
         (args.command == "warmup", "warmup"),
         (args.ndev not in (None, 1), "--ndev > 1"),
-        (args.device_store, "--device-store"),
         (args.listen, "--listen"),
         (args.windowed > 0, "--windowed"),
         (args.speed_sweep > 0, "--speed-sweep"),
@@ -146,6 +156,7 @@ def setup_analyzer(args, device) -> Analyzer:
                   fail_on_error=not args.continue_on_error,
                   device=device)
     an.stream_above_sec = max(0.0, args.stream_above)
+    an.stream_chunk_frames = max(64, args.stream_chunk)
     return an
 
 
@@ -202,8 +213,6 @@ def _decode_many(analyzer: Analyzer, names: list, ncores, report):
     raw int16; other PCM WAVs take the native threaded loader when it is
     available; everything else decodes per file."""
     results: dict[int, object] = {}
-    for n in names:
-        analyzer._refuse_streaming(n)
     wav_idx = [i for i, n in enumerate(names)
                if n.lower().endswith(".wav") and os.path.exists(n)
                and not audio_io.wav_is_target_mono16(n, analyzer.target_sr)]
@@ -249,16 +258,35 @@ def do_merge(ht: HashTable, names: list, report, stages: Stages) -> None:
 
 
 def _decode_chunk(analyzer: Analyzer, args, report, chunk: list) -> list:
-    """Decode one chunk -> (name, kind, samples) entries in input order;
-    kind "pre" (precomputed, loads later) or "wav"."""
-    def _pre(n):
-        return os.path.splitext(n)[1] in (formats.PRECOMPEXT,
-                                          formats.PRECOMPPKEXT)
+    """Decode one chunk -> (name, kind, payload) entries in input order.
+    kind is "pre" (precomputed, loads later), "wav" (payload = decoded
+    samples) or "stream" (a WAV past --stream-above, analysed chunk-wise
+    right here with O(chunk) memory; payload = (hashes, duration))."""
+    def _kind(n):
+        if os.path.splitext(n)[1] in (formats.PRECOMPEXT,
+                                      formats.PRECOMPPKEXT):
+            return "pre"
+        return "stream" if analyzer._should_stream(n) else "wav"
 
-    wavs = [n for n in chunk if not _pre(n)]
+    kinds = [_kind(n) for n in chunk]
+    wavs = [n for n, k in zip(chunk, kinds) if k == "wav"]
     signals = iter(_decode_many(analyzer, wavs, args.ncores, report))
-    return [(n, "pre", None) if _pre(n) else (n, "wav", next(signals))
-            for n in chunk]
+    out = []
+    for n, k in zip(chunk, kinds):
+        if k == "wav":
+            out.append((n, k, next(signals)))
+        elif k == "stream":
+            try:
+                h = analyzer.wavfile2hashes_streaming(n)
+                out.append((n, k, (h, analyzer.soundfiledur)))
+            except (OSError, ValueError, audio_io.DecodeError) as e:
+                if analyzer.fail_on_error:
+                    raise
+                report(f"Error reading {n}: {e}")
+                out.append((n, k, None))
+        else:
+            out.append((n, k, None))
+    return out
 
 
 def _resolve_chunk(analyzer: Analyzer, ordered: list, hashes_iter,
@@ -272,6 +300,10 @@ def _resolve_chunk(analyzer: Analyzer, ordered: list, hashes_iter,
                 continue                       # decode failed, reported
             rows.append((name, next(hashes_iter),
                          len(d) / analyzer.target_sr))
+            continue
+        if kind == "stream":
+            if d is not None:                  # else: failed, reported
+                rows.append((name, d[0], d[1]))
             continue
         try:
             h = analyzer.wavfile2hashes(name)  # .afpt or .afpk
@@ -319,9 +351,15 @@ def _wav_signals(ordered: list) -> list:
 
 def do_ingest(ht: HashTable, analyzer: Analyzer, names: list, args,
               report, stages: Stages) -> tuple[int, float]:
-    """Batched analyze + host store; returns (n_files, total_dur)."""
+    """Batched analyze + store; returns (n_files, total_dur).
+
+    With --device-store each chunk is one fused fingerprint + store pass on
+    the device and one small counts fetch (models/ingest.DeviceIngest; the
+    hashes never reach the host); otherwise the fingerprints come to the
+    host and go into the host table."""
     tot_dur = 0.0
     n_done = 0
+    store = DeviceIngest(ht, analyzer) if args.device_store else None
     if args.skip_existing:
         present = {n for n in ht.names if n is not None}
         for n in names:
@@ -333,19 +371,41 @@ def do_ingest(ht: HashTable, analyzer: Analyzer, names: list, args,
 
     def consume(ordered, handle):
         nonlocal tot_dur, n_done
-        with stages.time("analyze"):
-            hashes = iter(analyzer.fingerprint_resolve(handle))
-        for name, h, dur in _resolve_chunk(analyzer, ordered, hashes, report):
-            with stages.time("store"):
-                ht.store_vectorized(name, h)
+        if store is not None:
+            # stored at dispatch, in input order; report only after the
+            # counts fetch, so a failed store leaves no "ingested" line
+            with stages.time("analyze"):
+                rows = store.consume_chunk(handle)
+        else:
+            with stages.time("analyze"):
+                hashes = iter(analyzer.fingerprint_resolve(handle))
+            rows = []
+            for name, h, dur in _resolve_chunk(analyzer, ordered, hashes,
+                                               report):
+                with stages.time("store"):
+                    ht.store_vectorized(name, h)
+                rows.append((name, len(h), dur))
+        for name, nh, dur in rows:
             tot_dur += dur
             n_done += 1
-            report(f"ingested #{n_done}: {name} "
-                   f"({dur:.1f} s, {len(h)} hashes)")
+            report(f"ingested #{n_done}: {name} ({dur:.1f} s, {nh} hashes)")
 
-    _run_pipelined(chunks, analyzer, args, report, stages, consume,
-                   lambda ordered: analyzer.fingerprint_async(
-                       _wav_signals(ordered)))
+    if store is not None:
+        def dispatch(ordered):
+            return store.dispatch_chunk(ordered, report)
+    else:
+        def dispatch(ordered):
+            return analyzer.fingerprint_async(_wav_signals(ordered))
+    try:
+        _run_pipelined(chunks, analyzer, args, report, stages, consume,
+                       dispatch)
+    finally:
+        # even when a chunk raises (fail_on_error), the host table must
+        # hold every chunk already stored on the device: names and
+        # hashesperid were updated eagerly
+        if store is not None:
+            with stages.time("store"):
+                store.finalize()
     return n_done, tot_dur
 
 
@@ -522,7 +582,8 @@ def main(argv=None, device=None) -> int:
         if args.json_metrics:
             stages.add_meta(command=cmd, n_files=n_files,
                             total_dur_s=round(tot_dur, 3),
-                            elapsed_s=round(elapsed, 3))
+                            elapsed_s=round(elapsed, 3),
+                            kernel_launches={**SP.launches, **CP.launches})
             stages.dump_json(args.json_metrics)
     finally:
         if out_f is not None:

@@ -1,8 +1,13 @@
 // Kernel K2: the causal onset high-pass filter along time,
-//   y[t] = (x[t] - x[t-1]) + pole * y[t-1],   x[-1] = y[-1] = 0,
-// over a (B, T, F) float32 spectrogram.
+//   y[t] = (x[t] - x[t-1]) + pole * y[t-1],
+// over a (B, T, F) float32 spectrogram, with an optional carry:
+// (x[-1], y[-1]) are read from x0/y0 (each (B, F)) or are zero when those
+// pointers are null, and (x[T-1], y[T-1]) are written to xT/yT when those
+// are not null.  Chaining the carry over consecutive chunks of T gives
+// exactly the one-pass result (streamed ingest, ops/streaming.py).
 //
-// Replaces: audfprint_tpu/ops/spectro.py hpf (a lax.scan that XLA runs
+// Replaces: audfprint_tpu/ops/spectro.py hpf and the scan of
+// audfprint_tpu/ops/streaming.py chunk_fwd_peaks (lax.scans that XLA runs
 // outside any Pallas kernel).  PyTorch has no scan primitive, and a Python
 // loop over T issues about three launches per frame.
 //
@@ -22,6 +27,10 @@
 
 __global__ void hpf_scan_kernel(const float* __restrict__ x,
                                 float* __restrict__ y,
+                                const float* __restrict__ x0,
+                                const float* __restrict__ y0,
+                                float* __restrict__ xT,
+                                float* __restrict__ yT,
                                 int B, int T, int F, float pole) {
   const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= (long long)B * F) return;
@@ -29,8 +38,8 @@ __global__ void hpf_scan_kernel(const float* __restrict__ x,
   const long long f = col % F;
   const float* xp = x + b * T * F + f;
   float* yp = y + b * T * F + f;
-  float xprev = 0.0f;
-  float yprev = 0.0f;
+  float xprev = x0 ? x0[col] : 0.0f;
+  float yprev = y0 ? y0[col] : 0.0f;
 #pragma unroll 8
   for (int t = 0; t < T; ++t) {
     const float xv = xp[(long long)t * F];
@@ -39,16 +48,19 @@ __global__ void hpf_scan_kernel(const float* __restrict__ x,
     xprev = xv;
     yprev = yv;
   }
+  if (xT) xT[col] = xprev;
+  if (yT) yT[col] = yprev;
 }
 
-extern "C" int hpf_scan(const float* x, float* y, int B, int T, int F,
-                        float pole, void* stream) {
+extern "C" int hpf_scan(const float* x, float* y, const float* x0,
+                        const float* y0, float* xT, float* yT, int B, int T,
+                        int F, float pole, void* stream) {
   const long long n = (long long)B * F;
   if (n > 0 && T > 0) {
     const int threads = 256;
     const long long blocks = (n + threads - 1) / threads;
     hpf_scan_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        x, y, B, T, F, pole);
+        x, y, x0, y0, xT, yT, B, T, F, pole);
   }
   return (int)cudaGetLastError();
 }

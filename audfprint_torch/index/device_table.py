@@ -1,14 +1,19 @@
-"""Device-resident inverted hash index: the gather side (port of
+"""Device-resident inverted hash index (port of
 audfprint_tpu/index/device_table.py).
 
-The host `HashTable` stays the canonical store and persistence format;
-`table_to_device` uploads it and `get_hits_local` gathers each query
-hash's bucket row.  The table lives on the device as an int32 view of the
-uint32 host array (2^20 x 100 x 4 B = 419 MB at the defaults); only the
-gathered rows are widened to int64 and masked to 32 bits before the
-decode, because an int32 shift sign-extends entries whose top bit is set
-(ids >= 2^17 at maxtimebits=14), and PyTorch has no >> on uint32 on the
-CPU.
+The host `HashTable` stays the canonical store and persistence format.
+Gather side: `table_to_device` uploads it and `get_hits_local` gathers
+each query hash's bucket row.  Store side (`--device-store` ingest,
+models/ingest.py): `store_batch_local` inserts whole batches on the
+device, bit-identical to the sequential host store, and `table_to_host`
+brings the result back.
+
+The table lives on the device as an int32 view of the uint32 host array
+(2^20 x 100 x 4 B = 419 MB at the defaults).  PyTorch has no >>, % or
+index_put_ on uint32 on the CPU, so every uint32 quantity that needs
+arithmetic (gathered entries, the reservoir hash) is widened to int64 and
+masked to 32 bits; an int32 shift would sign-extend entries whose top bit
+is set (ids >= 2^17 at maxtimebits=14).
 """
 
 from __future__ import annotations
@@ -87,3 +92,142 @@ def get_hits_local(table: torch.Tensor, counts: torch.Tensor,
     ids = (tab >> cfg.maxtimebits).to(torch.int32)
     dts = ((tab & timemask) - qtimes.long()[:, :, None]).to(torch.int32)
     return ids, dts, hvalid
+
+
+_M32 = 0xFFFFFFFF
+_C1 = 0x85EBCA6B
+_C2 = 0xC2B2AE35
+_GOLDEN = 0x9E3779B1
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a 32-bit constant c,
+    without overflowing int64: the product is formed from x's 16-bit
+    halves, each below 2^48."""
+    lo = (x & 0xFFFF) * c
+    hi = (((x >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 on int64 tensors holding uint32 values; equals
+    audfprint_tpu.utils.prng.mix32."""
+    x = x.to(torch.int64) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, _C1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _C2)
+    return x ^ (x >> 16)
+
+
+def reservoir_slot_device(bucket: torch.Tensor, position: torch.Tensor,
+                          seed: int) -> torch.Tensor:
+    """Slot in [0, position] for the entry inserted at `position` into
+    `bucket` (utils/prng.reservoir_slot): the uint32 hash modulo the
+    position + 1 (positions are int32 counts, so + 1 cannot wrap), as
+    int64."""
+    pos = position.to(torch.int64) & _M32
+    h = _mix32(_mul32(bucket.to(torch.int64) & _M32, _GOLDEN)
+               ^ _mix32((pos + seed) & _M32))
+    return h % (pos + 1)
+
+
+def empty_table(cfg: TableConfig, device) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """A zeroed (n_buckets, depth) int32 table and (n_buckets,) counts."""
+    if cfg.wide:
+        raise NotImplementedError(
+            "wide tables (--idbits past 32 - maxtimebits) are not yet ported "
+            "to audfprint_torch (ROADMAP.md)")
+    return (torch.zeros((cfg.n_buckets, cfg.depth), dtype=torch.int32,
+                        device=device),
+            torch.zeros(cfg.n_buckets, dtype=torch.int32, device=device))
+
+
+def store_batch_local(table: torch.Tensor, counts: torch.Tensor,
+                      times: torch.Tensor, hashes: torch.Tensor,
+                      valid: torch.Tensor, ids: torch.Tensor,
+                      cfg: TableConfig, bucket_lo: int = 0) -> None:
+    """Insert a batch of per-file hash streams into a (possibly shard-local)
+    table covering buckets [bucket_lo, bucket_lo + table.shape[0]),
+    updating `table` and `counts` in place.
+
+    times/hashes/valid: (B, L) int/int/bool per-file streams (straight from
+    ops.pipeline.fingerprint_batch); ids: (B,) int track ids.  Semantics
+    == sequential HashTable.store of file 0, then file 1, ..., restricted
+    to the owned bucket range."""
+    B, L = hashes.shape
+    t = times.to(torch.int64) & (cfg.maxtime - 1)
+    u = ids.to(device=table.device, dtype=torch.int64)[:, None].expand(B, L)
+    entry = ((u << cfg.maxtimebits) | t) & _M32
+    store_packed_local(table, counts, hashes.reshape(-1), entry.reshape(-1),
+                       valid.reshape(-1), cfg, bucket_lo)
+
+
+def store_packed_local(table: torch.Tensor, counts: torch.Tensor,
+                       hashes: torch.Tensor, entry: torch.Tensor,
+                       valid: torch.Tensor, cfg: TableConfig,
+                       bucket_lo: int = 0) -> None:
+    """Insert pre-packed entries (= (id << maxtimebits) | t, uint32 values
+    in any integer dtype) in arrival order, in place.
+
+    Stable sort by bucket -> rank within the bucket -> insertion position
+    counts[bucket] + rank -> the deterministic reservoir slot past the
+    depth -> last write wins per (bucket, slot) -> one scatter of the
+    surviving rows, whose (bucket, slot) pairs are unique."""
+    n_local, depth = table.shape
+    dev = table.device
+    h = (hashes.to(device=dev, dtype=torch.int64)
+         & ((1 << cfg.hashbits) - 1)) - bucket_lo
+    v = valid.to(dev) & (h >= 0) & (h < n_local)
+    n = h.shape[0]
+    # invalid rows sort last, into a sentinel bucket that is never written
+    hkey = torch.where(v, h, n_local)
+    hs, order = torch.sort(hkey, stable=True)
+    es = entry.to(device=dev, dtype=torch.int64)[order]
+    idx = torch.arange(n, device=dev)
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = hs[1:] != hs[:-1]
+    run_start = torch.cummax(torch.where(first, idx, 0), dim=0).values
+    rank = idx - run_start
+    pos = counts.to(torch.int64)[torch.clamp(hs, max=n_local - 1)] + rank
+    slot = torch.where(
+        pos < depth, pos,
+        reservoir_slot_device(hs + bucket_lo, torch.clamp(pos, min=depth),
+                              cfg.seed))
+    write = (slot < depth) & (hs < n_local)
+    # last write wins on (bucket, slot): the rows are in (bucket, arrival)
+    # order, so a stable sort by the packed (bucket, slot) key orders them
+    # by (bucket, slot, arrival) and the last row of each run survives
+    skey = torch.where(write, slot, depth)
+    if (n_local + 1) * (depth + 1) >= 1 << 62:
+        raise ValueError("store_packed_local: (bucket, slot) key overflows")
+    key2, perm = torch.sort(hs * (depth + 1) + skey, stable=True)
+    last = torch.ones(n, dtype=torch.bool, device=dev)
+    last[:-1] = key2[1:] != key2[:-1]
+    hs2, sk2 = hs[perm], skey[perm]
+    do = last & (sk2 < depth) & (hs2 < n_local)
+    table[hs2[do], sk2[do]] = _as_int32(es[perm][do])
+    counts += torch.bincount(hkey, minlength=n_local + 1)[:n_local].to(
+        counts.dtype)
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding uint32 values -> the int32 with the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def store_batch(table: torch.Tensor, counts: torch.Tensor,
+                times: torch.Tensor, hashes: torch.Tensor,
+                valid: torch.Tensor, ids: torch.Tensor,
+                cfg: TableConfig) -> None:
+    """Full-table store (single device), in place; see store_batch_local."""
+    store_batch_local(table, counts, times, hashes, valid, ids, cfg, 0)
+
+
+def table_to_host(table: torch.Tensor, counts: torch.Tensor, ht) -> None:
+    """Download device state into a host HashTable (names managed by the
+    caller)."""
+    ht.table = table.cpu().numpy().view(np.uint32)
+    ht.counts = counts.cpu().numpy().astype(np.int32)
+    ht.dirty = True

@@ -3,13 +3,14 @@
 Mirrors the reference class surface (wavfile2hashes / wavfile2peaks /
 ingest) plus the batched entry points.  All DSP runs through
 ops.pipeline on `device`; decode stays on the host.  Audio lengths are
-padded into geometric buckets so batches share a few shapes.
+padded into geometric buckets so batches share a few shapes.  WAVs longer
+than `stream_above_sec` take the chunked streamed route
+(models/streaming.py) with O(chunk) host and device memory.
 """
 
 from __future__ import annotations
 
 import os
-import wave
 
 import numpy as np
 import torch
@@ -18,6 +19,7 @@ from audfprint_tpu import params as P
 from audfprint_tpu.ops.config import PipelineConfig
 from audfprint_tpu.utils import audio as audio_io
 from audfprint_tpu.utils import formats
+from audfprint_torch.models import streaming as STM
 from audfprint_torch.ops import pipeline as pipe
 from audfprint_torch.utils.device import resolve_device
 
@@ -59,10 +61,11 @@ class Analyzer:
         # lists; the peak prune is bound by its serial time chain, so wide
         # batches are what fill the card
         self.max_batch_rows = 256
-        # WAVs longer than this would take the chunked streaming ingest of
-        # the JAX package, which is not ported yet: they raise instead of
-        # quietly batching.  0 disables the check.
+        # streamed (chunked) ingest for very long inputs: PCM WAVs longer
+        # than stream_above_sec analyse chunk by chunk with O(chunk) host
+        # and device memory (models/streaming.py).  0 disables streaming.
         self.stream_above_sec = 3600.0
+        self.stream_chunk_frames = 8192
 
     # -- config ---------------------------------------------------------
 
@@ -82,29 +85,9 @@ class Analyzer:
     # -- decode ---------------------------------------------------------
 
     def read_audio(self, filename: str) -> np.ndarray:
-        self._refuse_streaming(filename)
         d, _sr = audio_io.audio_read(filename, sr=self.target_sr, channels=1)
         self.soundfiledur = float(len(d)) / self.target_sr
         return d
-
-    def _should_stream(self, filename: str) -> bool:
-        """True when this PCM WAV is longer than stream_above_sec (header
-        probe only, no decode)."""
-        if not self.stream_above_sec or not filename.lower().endswith(".wav"):
-            return False
-        try:
-            with wave.open(filename, "rb") as w:
-                dur = w.getnframes() / float(w.getframerate())
-        except (OSError, EOFError, wave.Error):
-            return False
-        return dur > self.stream_above_sec
-
-    def _refuse_streaming(self, filename: str) -> None:
-        if self._should_stream(filename):
-            raise NotImplementedError(
-                f"{filename}: longer than {self.stream_above_sec:g} s; "
-                "streaming ingest is not yet ported to audfprint_torch "
-                "(ROADMAP.md)")
 
     # -- single-file API (reference parity) ------------------------------
 
@@ -126,6 +109,8 @@ class Analyzer:
             h = oa.landmarks2hashes(oa.peaks2landmarks(peaks, params))
             hashes = (np.unique(h, axis=0) if len(h)
                       else np.zeros((0, 2), np.int32))
+        elif self._should_stream(filename):
+            return self.wavfile2hashes_streaming(filename)
         else:
             return self.samples2hashes(self.read_audio(filename))
         # the reference reports duration from the hash extent here
@@ -170,6 +155,33 @@ class Analyzer:
         hashes = self.wavfile2hashes(filename)
         ht.store_vectorized(filename, hashes)
         return self.soundfiledur, len(hashes)
+
+    # -- streamed (chunked) ingest for very long inputs -------------------
+
+    def _should_stream(self, filename: str) -> bool:
+        """True when this file is longer than stream_above_sec and can
+        stream (a PCM WAV at any rate; wrong rates stream through chunked
+        polyphase resampling).  Header probe only, no decode."""
+        if not self.stream_above_sec or not filename.lower().endswith(".wav"):
+            return False
+        try:
+            src = STM.open_stream_source(filename, self.target_sr)
+        except STM.StreamUnsupported:
+            return False
+        dur = src.n_samples / float(self.target_sr)
+        src.close()
+        return dur > self.stream_above_sec
+
+    def wavfile2hashes_streaming(self, filename: str,
+                                 chunk_frames: int | None = None
+                                 ) -> np.ndarray:
+        """Chunked analysis of a WAV of any length: host and device memory
+        O(chunk) instead of O(file) (models/streaming.py)."""
+        h, dur = STM.wavfile2hashes_streaming(
+            filename, self.config, self.target_sr, self.device,
+            chunk_frames or self.stream_chunk_frames)
+        self.soundfiledur = dur
+        return h
 
     # -- batched API --------------------------------------------------------
 
@@ -249,11 +261,18 @@ class Analyzer:
 
     def wavfiles2hashes(self, filenames: list) -> list:
         """Batched fingerprinting of many files -> list of (N, 2) arrays
-        (None for failed decodes when fail_on_error is False)."""
+        (None for failed decodes when fail_on_error is False).  Files past
+        stream_above_sec analyse chunk-wise instead of joining the
+        in-memory batch."""
         signals, durs, oks = [], [], []
-        for f in filenames:
+        streamed: dict[int, np.ndarray] = {}
+        for i, f in enumerate(filenames):
             try:
-                signals.append(self.read_audio(f))
+                if self._should_stream(f):
+                    streamed[i] = self.wavfile2hashes_streaming(f)
+                    signals.append(np.zeros(0, np.float32))
+                else:
+                    signals.append(self.read_audio(f))
                 durs.append(self.soundfiledur)
                 oks.append(True)
             except audio_io.DecodeError:
@@ -263,6 +282,8 @@ class Analyzer:
                 durs.append(0.0)
                 oks.append(False)
         hashes = self.samples_batch2hashes(signals)
+        for i, h in streamed.items():
+            hashes[i] = h
         self.durations = durs
         return [h if ok else None for h, ok in zip(hashes, oks)]
 

@@ -37,11 +37,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, y, B, T, F, pole, stream
-    "hpf_scan": [_P, _P, _I, _I, _I, _F, _P],
+    # x, y, x0, y0, xT, yT, B, T, F, pole, stream (carry pointers may be 0)
+    "hpf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # m0, n_frames, env0f, env0b, gvec, lpos, lval, kept, B, T, F, k,
     # a_dec, stream
     "prune_fwd_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # m0, env_in, gvec, lpos, lval, env_out, B, T, F, k, a_dec, stream
+    "prune_fwd_carry": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 

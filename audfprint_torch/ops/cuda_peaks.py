@@ -8,6 +8,11 @@ tensors and `prune_fwd_bwd_plain` on CPU tensors; both return the kept
 positions per frame in extraction order, -1 where nothing was kept.  The
 delete-next rule and the ascending slot order follow in plain torch.
 
+Streamed ingest (ops/streaming.py) runs the forward half alone, chunk by
+chunk: kernel K1f, `prune_fwd_carry` (plain version
+`prune_fwd_carry_plain`), takes the envelope in and hands it back, the
+port of audfprint_tpu/ops/peaks.py fwd_prune_carry.
+
 The TPU kernel split the (F, F) bump table into three bf16 planes to reach
 the MXU; K1 reads the 2F-1 float template directly and forms the same
 single f32 product v * g, so results stay bit-identical to
@@ -27,8 +32,9 @@ _NEG = -3.0e38     # "not a candidate" in m0: below every envelope
 MAX_BINS = 1024    # K1: one thread per bin
 MAX_K = 16
 
-# kernel launches made by prune_fwd_bwd (read by the on-card smoke run)
-launches = {"prune_fwd_bwd": 0}
+# kernel launches made by prune_fwd_bwd and prune_fwd_carry (read by the
+# on-card smoke run)
+launches = {"prune_fwd_bwd": 0, "prune_fwd_carry": 0}
 
 
 def _bump_table(gvec: torch.Tensor, F: int) -> torch.Tensor:
@@ -44,7 +50,7 @@ def prune_fwd_bwd_plain(m0: torch.Tensor, n_frames: torch.Tensor,
     """Plain version of K1 -> kept (B, T, k) int32, -1 = not kept."""
     gtab = _bump_table(gvec, m0.shape[-1])
     a = torch.tensor(np.float32(a_dec), device=m0.device)
-    vals, pos, ok = PK.fwd_lists(m0, env0f, gtab, a, k)
+    vals, pos, ok, _env = PK.fwd_lists(m0, env0f, gtab, a, k)
     kept = PK.bwd_lists(vals, pos, ok, n_frames, env0b, gtab, a)
     return kept.to(torch.int32)
 
@@ -91,18 +97,75 @@ def prune_fwd_bwd(m0: torch.Tensor, n_frames: torch.Tensor,
     return kept
 
 
+def prune_fwd_carry_plain(m0: torch.Tensor, env_in: torch.Tensor,
+                          gvec: torch.Tensor, a_dec: float, k: int):
+    """Plain version of K1f -> (lpos (B, T, k) int32 in extraction order,
+    -1 = empty slot; lval (B, T, k) f32, -inf = empty; env_out (B, F))."""
+    gtab = _bump_table(gvec, m0.shape[-1])
+    a = torch.tensor(np.float32(a_dec), device=m0.device)
+    vals, pos, ok, env = PK.fwd_lists(m0, env_in, gtab, a, k)
+    return torch.where(ok, pos, -1).to(torch.int32), vals, env
+
+
+def prune_fwd_carry(m0: torch.Tensor, env_in: torch.Tensor,
+                    gvec: torch.Tensor, a_dec: float, k: int):
+    """Kernel K1f on a CUDA tensor, its plain version on a CPU tensor: the
+    forward prune of a chunk of frames, continuing from the envelope
+    env_in and handing back the envelope after its last frame.
+
+    m0 (B, T, F) f32 candidate map, env_in (B, F) f32, gvec (2F-1,) f32 ->
+    (lpos (B, T, k) int32, lval (B, T, k) f32, env_out (B, F) f32)."""
+    if m0.device.type == "cpu":
+        return prune_fwd_carry_plain(m0, env_in, gvec, a_dec, k)
+    if m0.device.type != "cuda":
+        raise RuntimeError(f"prune_fwd_carry: no kernel for device {m0.device}")
+    B, T, F = m0.shape
+    if not (0 < F <= MAX_BINS and 0 < k <= MAX_K):
+        raise ValueError(f"prune_fwd_carry: needs 0 < F <= {MAX_BINS} and "
+                         f"0 < k <= {MAX_K}, got F={F}, k={k}")
+    if gvec.shape != (2 * F - 1,) or env_in.shape != (B, F):
+        raise ValueError("prune_fwd_carry: inconsistent shapes")
+    from audfprint_torch.ops import _build
+
+    f32 = torch.float32
+    m0c = m0.to(f32).contiguous()
+    e_in = env_in.to(device=m0.device, dtype=f32).contiguous()
+    g = gvec.to(device=m0.device, dtype=f32).contiguous()
+    lpos = torch.empty((B, T, k), dtype=torch.int32, device=m0.device)
+    lval = torch.empty((B, T, k), dtype=f32, device=m0.device)
+    env_out = torch.empty((B, F), dtype=f32, device=m0.device)
+    if B == 0:
+        return lpos, lval, env_out
+    lib = _build.load()
+    with torch.cuda.device(m0.device):
+        err = lib.prune_fwd_carry(
+            m0c.data_ptr(), e_in.data_ptr(), g.data_ptr(), lpos.data_ptr(),
+            lval.data_ptr(), env_out.data_ptr(), B, T, F, k, float(a_dec),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "prune_fwd_carry")
+    launches["prune_fwd_carry"] += 1
+    return lpos, lval, env_out
+
+
+def candidate_map(y: torch.Tensor, n_frames: torch.Tensor) -> torch.Tensor:
+    """The prune's candidate map m0: y at local maxima of frames t <
+    n_frames, _NEG everywhere else."""
+    T = y.shape[1]
+    active = (torch.arange(T, device=y.device)[None, :]
+              < n_frames.to(y.device)[:, None])
+    return torch.where(PK.locmax2(y) & active[:, :, None], y, _NEG)
+
+
 def prune_inputs(sgram: torch.Tensor, n_frames: torch.Tensor,
                  cfg: PipelineConfig):
     """The envelope-independent prologue, vectorised over all frames: the
     HPF (K2), locmax and the length mask into the candidate map m0, and
     both initial envelopes.  Returns (y, m0, env0f, env0b, gvec)."""
-    T, F = sgram.shape[1:]
+    F = sgram.shape[2]
     gvec = torch.as_tensor(PK.gauss_vector(cfg), device=sgram.device)
     gtab = _bump_table(gvec, F)
-    y = SP.hpf(sgram, cfg)
-    active = (torch.arange(T, device=sgram.device)[None, :]
-              < n_frames[:, None])
-    m0 = torch.where(PK.locmax2(y) & active[:, :, None], y, _NEG)
+    y, _ = SP.hpf(sgram, cfg)
+    m0 = candidate_map(y, n_frames)
     return (y, m0, PK.head_envelope(y, n_frames, gtab),
             PK.tail_envelope(y, n_frames, gtab), gvec)
 

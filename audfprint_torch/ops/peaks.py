@@ -101,8 +101,11 @@ def fwd_lists(m0: torch.Tensor, env0: torch.Tensor, gtab: torch.Tensor,
               a_dec: torch.Tensor, k: int):
     """Forward pass over a candidate map m0 (B, T, F): values of local
     maxima in valid frames, anything else below every envelope (-inf or
-    -3e38).  Returns the per-frame accepted lists in extraction order:
-    (vals (B,T,k) f32, pos (B,T,k) int64, valid (B,T,k) bool)."""
+    -3e38).  Returns the per-frame accepted lists in extraction order,
+    (vals (B,T,k) f32, pos (B,T,k) int64, valid (B,T,k) bool), and the
+    envelope after the last frame (B, F), which continues the pass over
+    the next chunk of frames (the decay follows every frame, valid or
+    not)."""
     B, T, _F = m0.shape
     vals = m0.new_empty((B, T, k))
     pos = torch.empty((B, T, k), dtype=torch.long, device=m0.device)
@@ -115,7 +118,7 @@ def fwd_lists(m0: torch.Tensor, env0: torch.Tensor, gtab: torch.Tensor,
         contrib = torch.where(pv[:, :, None], v[:, :, None] * gtab[p], zero)
         sthresh = torch.maximum(sthresh, contrib.amax(dim=1)) * a_dec
         vals[:, t], pos[:, t], ok[:, t] = v, p, pv
-    return vals, pos, ok
+    return vals, pos, ok, sthresh
 
 
 def bwd_lists(vals: torch.Tensor, pos: torch.Tensor, ok: torch.Tensor,
@@ -159,8 +162,9 @@ def fwd_prune(sgram: torch.Tensor, n_frames: torch.Tensor,
     active = (torch.arange(T, device=sgram.device)[None, :]
               < n_frames[:, None])
     m0 = torch.where(locmax2(sgram) & active[:, :, None], sgram, _NEG)
-    _v, pos, ok = fwd_lists(m0, head_envelope(sgram, n_frames, gtab), gtab,
-                            _a_dec(cfg, sgram.device), cfg.maxpksperframe)
+    _v, pos, ok, _env = fwd_lists(m0, head_envelope(sgram, n_frames, gtab),
+                                  gtab, _a_dec(cfg, sgram.device),
+                                  cfg.maxpksperframe)
     return _lists_to_mask(pos, ok, F)
 
 

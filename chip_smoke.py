@@ -13,16 +13,32 @@ Phases (any failure exits non-zero before the result line):
      tie-heavy ones, and at 512 bins with 8 peaks per frame, bit for bit
      on the kept lists; a few rows against the numpy oracle's
      find_peaks_mask
-  5. the main path at BASELINE config 2 ("1k-track DB of 30s clips; clean
+  5. K1f (prune_fwd_carry) against its plain version at the streamed
+     chunk shapes 1 x 8192 x 256 and 4 x 2048 x 256, random and
+     tie-heavy, envelope in from the head and from a carry; K1f and K2
+     over 3 carried chunks against one pass, bit for bit
+  6. the main path at BASELINE config 2 ("1k-track DB of 30s clips; clean
      exact-segment queries"): 1,000 synthetic music-like 30 s tracks from
      a fixed seed -> Analyzer(device="cuda") -> host HashTable (2^20 x 100)
      -> device table -> 64 clean 10 s hop-aligned queries through the fused
      Matcher path; top-1 self >= 0.95, hash Jaccard > 0.9 against the
      oracle for 4 tracks, and both kernels launched on this path
-  6. the CLI as subprocesses (python -m audfprint_torch new / match), which
-     must print a rank-0 "Matched" line; then the golden CLI session of
-     tests/golden/cli_session.txt on the card, reporting differing lines
+  7. the fused device store (models/ingest.DeviceIngest) over the same
+     1,000 tracks: table, counts and hashesperid equal the host store's
+     bit for bit; ingest rate against fingerprint + host store
+  8. streaming: a seeded 7,200 s WAV through Analyzer's streamed route
+     (K1f and K2 launched, time, device memory peak), equal at 8,192- and
+     2,048-frame chunks, Jaccard > 0.9 against the in-memory path; then
+     `new` on it and two songs as a subprocess (the long file must stream)
+     and 10 s excerpts from 0:30, 59:00 and 1:58:00 matched at rank 0 with
+     the offset of their start modulo maxtime
+  9. the CLI as subprocesses (python -m audfprint_torch new / match, with
+     and without --device-store), which must print a rank-0 "Matched"
+     line; then the golden CLI session of tests/golden/cli_session.txt on
+     the card, reporting differing lines
 
+Each path of phases 6-8 runs with the kernels' launch counts set to 0
+just before it and read just after; the kernel record lists them by path.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON record and the one before that the nvidia-smi line.
 The script imports no JAX.
@@ -126,8 +142,8 @@ def phase_kernels(torch, rec: dict) -> None:
     # ---- K2 ----
     x = torch.from_numpy(
         rng.standard_normal((B, T, F)).astype(np.float32)).to(dev)
-    y = SP.hpf(x, cfg)
-    yp = SP.hpf_plain(x, cfg)
+    y = SP.hpf(x, cfg)[0]
+    yp = SP.hpf_plain(x, cfg)[0]
     torch.cuda.synchronize()
     err = (y - yp).abs().max().item()
     require(torch.equal(y, yp), f"K2 differs from its plain version ({err})")
@@ -197,6 +213,105 @@ def phase_kernels(torch, rec: dict) -> None:
                                 plain_ms=k1_plain)
 
 
+def _ridged(rng, b: int, t: int, F: int, quant: bool) -> np.ndarray:
+    """Random whitened-like frames with a few sustained tonal ridges;
+    np.round-quantised (plateaus, ties, repeats) when quant."""
+    w = rng.standard_normal((b, t, F)).astype(np.float32) * 2.0
+    for r in range(b):
+        for _ in range(6):
+            f0 = rng.integers(5, F - 5)
+            t0, t1 = sorted(rng.integers(0, t, 2).tolist())
+            w[r, t0:t1 + 1, f0] += 3.0
+    return np.round(w).astype(np.float32) if quant else w
+
+
+def phase_stream_kernels(torch, rec: dict, dev, shapes=((1, 8192), (4, 2048)),
+                         reps: int = 5) -> None:
+    """K1f against its plain version and the carried chunks against one
+    pass, for K1f and K2, at the streamed chunk shapes."""
+    from audfprint_tpu.ops.config import PipelineConfig
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import peaks as PK
+    from audfprint_torch.ops import spectro as SP
+
+    cfg = PipelineConfig()
+    F, k, a = cfg.n_bins, cfg.maxpksperframe, cfg.a_dec
+    rng = np.random.default_rng(SEED + 5)
+    gvec = torch.as_tensor(PK.gauss_vector(cfg), device=dev)
+    gtab = CP._bump_table(gvec, F)
+
+    def k1f_both(m0, env):
+        got = CP.prune_fwd_carry(m0, env, gvec, a, k)
+        want = CP.prune_fwd_carry_plain(m0, env, gvec, a, k)
+        return got, want
+
+    worst = 0.0
+    for b, t in shapes:
+        for quant in (False, True):
+            white = torch.from_numpy(_ridged(rng, b, t, F, quant)).to(dev)
+            y = SP.hpf(white, cfg)[0]
+            nf = torch.full((b,), t, dtype=torch.int32, device=dev)
+            nf[-1] = t - t // 3                  # a ragged last chunk
+            m0 = CP.candidate_map(y, nf)
+            for env in (PK.head_envelope(y, nf, gtab),
+                        torch.rand((b, F), device=dev) * 4.0):
+                got, want = k1f_both(m0, env)
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                err = (got[2] - want[2]).abs().max().item()
+                worst = max(worst, err)
+                require(same, f"K1f differs from its plain version at "
+                              f"({b},{t},{F}) quant={quant}: env err {err}")
+            print(f"K1f prune_fwd_carry ({b},{t},{F}, k={k}, "
+                  f"{'tie-heavy' if quant else 'random'}): bit-exact vs "
+                  f"plain, env in from the head and from the carry "
+                  f"({int((got[0] >= 0).sum())} peaks)")
+
+    # carried chunks against one pass (full chunks), K1f and K2
+    b, t = shapes[0]
+    white = torch.from_numpy(_ridged(rng, b, t, F, False)).to(dev)
+    y1, c1 = SP.hpf(white, cfg)
+    cuts = [0, t // 3, 2 * t // 3, t]
+    parts, carry = [], (torch.rand((b, F), device=dev),
+                        torch.rand((b, F), device=dev))
+    y_all, c_all = SP.hpf(white, cfg, carry)
+    for c0, c_1 in zip(cuts[:-1], cuts[1:]):
+        yc, carry = SP.hpf(white[:, c0:c_1].contiguous(), cfg, carry)
+        parts.append(yc)
+    require(torch.equal(torch.cat(parts, dim=1), y_all)
+            and all(torch.equal(u, v) for u, v in zip(carry, c_all)),
+            "K2 over 3 carried chunks differs from one pass")
+    nf = torch.full((b,), t, dtype=torch.int32, device=dev)
+    m0 = CP.candidate_map(y1, nf)
+    env0 = PK.head_envelope(y1, nf, gtab)
+    whole = CP.prune_fwd_carry(m0, env0, gvec, a, k)
+    env, lp, lv = env0, [], []
+    for c0, c_1 in zip(cuts[:-1], cuts[1:]):
+        p_, v_, env = CP.prune_fwd_carry(m0[:, c0:c_1].contiguous(), env,
+                                         gvec, a, k)
+        lp.append(p_)
+        lv.append(v_)
+    require(torch.equal(torch.cat(lp, 1), whole[0])
+            and torch.equal(torch.cat(lv, 1), whole[1])
+            and torch.equal(env, whole[2]),
+            "K1f over 3 carried chunks differs from one pass")
+    print(f"carries ({b},{t},{F}) in 3 chunks: K2 and K1f equal one pass "
+          "bit for bit")
+
+    k1f_ms = cuda_ms(lambda: CP.prune_fwd_carry(m0, env0, gvec, a, k), reps)
+    k1f_plain = cuda_ms(
+        lambda: CP.prune_fwd_carry_plain(m0, env0, gvec, a, k), 1)
+    c0_ = (torch.zeros((b, F), device=dev), torch.zeros((b, F), device=dev))
+    k2c_ms = cuda_ms(lambda: SP.hpf(white, cfg, c0_), reps)
+    k2c_plain = cuda_ms(lambda: SP.hpf_plain(white, cfg, c0_), 1)
+    print(f"K1f ({b},{t},{F}): kernel {k1f_ms:.3f} ms, plain "
+          f"{k1f_plain:.1f} ms; K2 with a carry: kernel {k2c_ms:.4f} ms, "
+          f"plain {k2c_plain:.1f} ms")
+    rec["prune_fwd_carry"] = dict(max_abs_err=worst, ms=k1f_ms,
+                                  plain_ms=k1f_plain)
+    rec.setdefault("hpf_scan", {}).update(carry_ms=k2c_ms,
+                                          carry_plain_ms=k2c_plain)
+
+
 def stage_breakdown(torch, batch: np.ndarray, lens: np.ndarray) -> dict:
     """Device ms of each fingerprint stage for one (256, 30 s) batch."""
     from audfprint_tpu.ops.config import PipelineConfig
@@ -255,8 +370,7 @@ def phase_main_path(torch, rec: dict) -> dict:
           + json.dumps({k: round(v, 3) for k, v in breakdown.items()}))
 
     # ---- the main path, counted ----
-    SP.launches["hpf_scan"] = 0
-    CP.launches["prune_fwd_bwd"] = 0
+    _counts_zero(SP, CP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -276,8 +390,7 @@ def phase_main_path(torch, rec: dict) -> dict:
     t0 = time.time()
     res, nhash = matcher.match_samples_fused(an, ht, queries)
     t_match = time.time() - t0
-    launches = {"hpf_scan": SP.launches["hpf_scan"],
-                "prune_fwd_bwd": CP.launches["prune_fwd_bwd"]}
+    launches = _counts(SP, CP)
     peak = torch.cuda.max_memory_allocated()
     in_use = torch.cuda.memory_allocated()
 
@@ -314,13 +427,197 @@ def phase_main_path(torch, rec: dict) -> dict:
           f"{in_use / 2**20:.1f} MiB; launches on the main path {launches}")
     require(top1 >= 0.95, f"top-1 self {top1} < 0.95")
     require(min(jac) > 0.9, f"oracle Jaccard {min(jac)} <= 0.9")
-    require(all(v > 0 for v in launches.values()),
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
             f"a kernel was not launched on the main path: {launches}")
-    for name in launches:
-        rec[name]["launches"] = launches[name]
-    return {"fingerprint_audio_s_per_s": as_s, "match_q_per_s":
-            n_q / t_match, "top1_self": top1, "jaccard_min": min(jac),
-            "peak_mib": peak / 2**20, "breakdown_ms": breakdown}
+    rec["_paths"]["config2"] = launches
+    return ({"fingerprint_audio_s_per_s": as_s, "match_q_per_s":
+             n_q / t_match, "top1_self": top1, "jaccard_min": min(jac),
+             "peak_mib": peak / 2**20, "breakdown_ms": breakdown},
+            tracks, ht, t_fp + t_store)
+
+
+def _jaccard(a: np.ndarray, b: np.ndarray):
+    sa = {tuple(r) for r in a.tolist()}
+    sb = {tuple(r) for r in b.tolist()}
+    return len(sa & sb) / max(1, len(sa | sb)), len(sa ^ sb)
+
+
+def _counts_zero(SP, CP) -> None:
+    for d in (SP.launches, CP.launches):
+        for key in d:
+            d[key] = 0
+
+
+def _counts(SP, CP) -> dict:
+    return {**SP.launches, **CP.launches}
+
+
+def _cli(argv: list, timeout: int = 900) -> str:
+    """python -m audfprint_torch <argv> as a subprocess; returns stdout."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-m", "audfprint_torch", *argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    require(proc.returncode == 0,
+            f"CLI {argv[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
+                    excerpt_sec=(30.0, 3540.0, 7080.0)) -> dict:
+    """A seeded long WAV through the streamed route: in-process (counted,
+    timed, device memory), at two chunk sizes, against the in-memory path,
+    then through the CLI as subprocesses with rank-0 matches of excerpts."""
+    from audfprint_tpu.utils.audio import audio_write_wav
+    from audfprint_torch.models.analyzer import Analyzer
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import spectro as SP
+
+    d = paths["dir"]
+    rng = np.random.default_rng(SEED + 4)
+    t0 = time.time()
+    x = synth_track(rng, long_sec)
+    long_wav = os.path.join(d, "long.wav")
+    audio_write_wav(long_wav, x, SR)
+    songs = []
+    for i in range(2):
+        songs.append(os.path.join(d, f"song{i}.wav"))
+        audio_write_wav(songs[-1], synth_track(rng, 20.0), SR)
+    queries, starts = [], []
+    for j, sec in enumerate(excerpt_sec):
+        s0 = 256 * int(round(sec * SR / 256))
+        queries.append(os.path.join(d, f"excerpt{j}.wav"))
+        audio_write_wav(queries[-1], x[s0: s0 + 10 * SR], SR)
+        starts.append(s0 // 256)
+    del x
+    print(f"streaming: wrote a {long_sec:g} s WAV "
+          f"({os.path.getsize(long_wav) / 1e6:.1f} MB) in "
+          f"{time.time() - t0:.1f} s (host numpy, not timed)")
+
+    an = Analyzer(device=dev)
+    an.stream_chunk_frames = 8192
+    # ---- the streamed path, counted ----
+    _counts_zero(SP, CP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    h8192 = an.wavfile2hashes_streaming(long_wav)
+    torch.cuda.synchronize()
+    t_stream = time.time() - t0
+    launches = _counts(SP, CP)
+    peak_stream = torch.cuda.max_memory_allocated()
+    require(launches["prune_fwd_carry"] > 0 and launches["hpf_scan"] > 0,
+            f"the streamed route did not launch K1f and K2: {launches}")
+    dur = an.soundfiledur
+    print(f"streamed {dur:.1f} s: {len(h8192)} hashes in {t_stream:.3f} s = "
+          f"{dur / t_stream:.1f} audio-s/s; device memory peak "
+          f"{peak_stream / 2**20:.1f} MiB; launches {launches}")
+
+    t0 = time.time()
+    h2048 = an.wavfile2hashes_streaming(long_wav, chunk_frames=2048)
+    t_2048 = time.time() - t0
+    same = np.array_equal(h8192, h2048)
+    jac_c, ndiff_c = _jaccard(h8192, h2048)
+    print(f"chunk-size invariance, 8192 vs 2048 frames: identical {same}, "
+          f"{ndiff_c} hashes differ, Jaccard {jac_c:.6f} "
+          f"(2048-frame run {t_2048:.3f} s)")
+    require(same, f"chunk sizes 8192 and 2048 give different hashes "
+                  f"({ndiff_c} differ)")
+
+    samples = an.read_audio(long_wav)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    h_mem = an.samples_batch2hashes([samples])[0]
+    torch.cuda.synchronize()
+    t_mem = time.time() - t0
+    peak_mem = torch.cuda.max_memory_allocated()
+    del samples
+    jac, ndiff = _jaccard(h8192, h_mem)
+    print(f"in-memory path on the same file: {len(h_mem)} hashes in "
+          f"{t_mem:.3f} s, device memory peak {peak_mem / 2**20:.1f} MiB; "
+          f"streamed vs in-memory Jaccard {jac:.6f}, {ndiff} hashes differ")
+    require(jac > 0.9, f"streamed vs in-memory Jaccard {jac} <= 0.9")
+
+    # ---- the CLI, as a user runs it ----
+    db = os.path.join(d, "long.pklz")
+    metrics = os.path.join(d, "long_metrics.json")
+    t0 = time.time()
+    out = _cli(["new", "-d", db, long_wav, *songs, "--json-metrics", metrics])
+    t_cli = time.time() - t0
+    with open(metrics) as f:
+        cli_launches = json.load(f)["kernel_launches"]
+    print("CLI new (subprocess, " + f"{t_cli:.1f} s):\n" + out.rstrip())
+    require(cli_launches.get("prune_fwd_carry", 0) > 0
+            and cli_launches.get("hpf_scan", 0) > 0,
+            f"CLI new did not stream the long WAV: launches {cli_launches}")
+    out = _cli(["match", "-d", db, *queries])
+    print("CLI match (subprocess):\n" + out.rstrip())
+    hop = 256 / SR
+    for q, f0 in zip(queries, starts):
+        m = re.search(re.escape(q) + r" .*? as \S+long\.wav at (-?[\d.]+) s "
+                      r".* at rank 0", out)
+        require(m is not None, f"{os.path.basename(q)}: no rank-0 match of "
+                               "long.wav")
+        want = (f0 % 16384) * hop
+        require(abs(float(m.group(1)) - want) <= 0.1,
+                f"{os.path.basename(q)}: offset {m.group(1)} s, expected "
+                f"{want:.2f} s (start modulo maxtime)")
+    rec["_paths"]["streaming"] = launches
+    return {"stream_audio_s_per_s": dur / t_stream, "stream_wall_s": t_stream,
+            "stream_peak_mib": peak_stream / 2**20,
+            "inmemory_peak_mib": peak_mem / 2**20,
+            "inmemory_wall_s": t_mem, "stream_vs_inmemory_jaccard": jac,
+            "stream_vs_inmemory_differing": ndiff,
+            "cli_new_long_wall_s": t_cli}
+
+
+def phase_device_store(torch, rec: dict, tracks: list, ht_host,
+                       t_two_stage: float, dev, chunk: int = 256) -> dict:
+    """The fused device store over config 2's tracks: bit-identical to the
+    host store, and its ingest rate against fingerprint + host store."""
+    from audfprint_tpu.index.hash_table import HashTable
+    from audfprint_torch.models.analyzer import Analyzer
+    from audfprint_torch.models.ingest import DeviceIngest
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import spectro as SP
+
+    an = Analyzer(device=dev)
+    names = [f"track{i}" for i in range(len(tracks))]
+    warm = DeviceIngest(HashTable(), an)       # allocator, cuFFT plans
+    warm.consume_chunk(warm.dispatch_chunk(
+        [(n, "wav", x) for n, x in zip(names[:chunk], tracks[:chunk])],
+        print))
+    del warm
+    ht = HashTable()
+    # ---- the device-store path, counted ----
+    _counts_zero(SP, CP)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ing = DeviceIngest(ht, an)
+    for i in range(0, len(tracks), chunk):
+        ing.consume_chunk(ing.dispatch_chunk(
+            [(n, "wav", x) for n, x in zip(names[i: i + chunk],
+                                           tracks[i: i + chunk])], print))
+    ing.finalize()
+    t_dev = time.time() - t0
+    launches = _counts(SP, CP)
+    same = (np.array_equal(ht.table, ht_host.table)
+            and np.array_equal(ht.counts, ht_host.counts)
+            and np.array_equal(ht.hashesperid, ht_host.hashesperid)
+            and ht.names == ht_host.names)
+    audio = sum(len(x) for x in tracks) / SR
+    print(f"device store, config 2: {len(tracks)} tracks in {t_dev:.3f} s = "
+          f"{audio / t_dev:.1f} audio-s/s fused (fingerprint + host store: "
+          f"{audio / t_two_stage:.1f} audio-s/s); table, counts and "
+          f"hashesperid equal the host store's: {same}; launches {launches}")
+    require(same, "the device store's table differs from the host store's")
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+            f"a kernel was not launched on the device-store path: {launches}")
+    rec["_paths"]["device_store"] = launches
+    return {"device_store_audio_s_per_s": audio / t_dev,
+            "two_stage_audio_s_per_s": audio / t_two_stage}
 
 
 def golden_session(tmpdir: str, main) -> str:
@@ -380,11 +677,10 @@ def golden_session(tmpdir: str, main) -> str:
 
 
 def phase_cli() -> dict:
+    from audfprint_tpu.index.hash_table import HashTable
     from audfprint_tpu.utils.audio import audio_write_wav
     from audfprint_torch.cli import main
 
-    env = dict(os.environ)
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     rng = np.random.default_rng(SEED + 3)
     with tempfile.TemporaryDirectory() as d:
         wavs = []
@@ -397,18 +693,23 @@ def phase_cli() -> dict:
         query = os.path.join(d, "query.wav")
         audio_write_wav(query, q, SR)
         db = os.path.join(d, "db.pklz")
-        out = ""
-        for argv in (["new", "-d", db, *wavs], ["match", "-d", db, query]):
-            proc = subprocess.run(
-                [sys.executable, "-m", "audfprint_torch", *argv], cwd=ROOT,
-                env=env, capture_output=True, text=True, timeout=300)
-            out += proc.stdout
-            require(proc.returncode == 0,
-                    f"CLI {argv[0]} exited {proc.returncode}: {proc.stderr}")
+        dbdev = os.path.join(d, "dbdev.pklz")
+        rank0 = (r"Matched \S+query\.wav .* as \S+song1\.wav at "
+                 r".* at rank 0")
+        out = _cli(["new", "-d", db, *wavs]) + _cli(["match", "-d", db, query])
         print("CLI subprocess output:\n" + out.rstrip())
-        require(re.search(r"Matched \S+query\.wav .* as \S+song1\.wav at "
-                          r".* at rank 0", out) is not None,
+        require(re.search(rank0, out) is not None,
                 "the CLI printed no rank-0 Matched line for the query")
+        out = (_cli(["new", "-d", dbdev, "--device-store", *wavs])
+               + _cli(["match", "-d", dbdev, query]))
+        print("CLI --device-store subprocess output:\n" + out.rstrip())
+        require(re.search(rank0, out) is not None,
+                "no rank-0 Matched line against the --device-store database")
+        a, b = HashTable(db), HashTable(dbdev)
+        same_db = (np.array_equal(a.table, b.table)
+                   and np.array_equal(a.counts, b.counts)
+                   and np.array_equal(a.hashesperid, b.hashesperid))
+        print(f"CLI new --device-store database equals new's: {same_db}")
     with tempfile.TemporaryDirectory() as d:
         got = golden_session(d, lambda argv: main(argv, device="cuda"))
     with open(os.path.join(ROOT, "tests", "golden", "cli_session.txt")) as f:
@@ -420,7 +721,8 @@ def phase_cli() -> dict:
           "differ from tests/golden/cli_session.txt")
     for i, a, b in diff[:10]:
         print(f"  line {i + 1}: golden {a!r}\n           card   {b!r}")
-    return {"golden_lines_differing": ndiff}
+    return {"golden_lines_differing": ndiff, "cli_device_store_same_db":
+            same_db}
 
 
 def main() -> int:
@@ -447,7 +749,8 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rec: dict = {}
+    dev = torch.device("cuda")
+    rec: dict = {"_paths": {}}
     summary: dict = {"card": smi}
     try:
         t0 = time.time()
@@ -460,22 +763,33 @@ def main() -> int:
                 if "Used" in line:
                     print("  ptxas:" + line.split("info    :")[-1].rstrip())
         phase_kernels(torch, rec)
-        summary.update(phase_main_path(torch, rec))
+        phase_stream_kernels(torch, rec, dev)
+        main_summary, tracks, ht, t_two_stage = phase_main_path(torch, rec)
+        summary.update(main_summary)
+        summary.update(phase_device_store(torch, rec, tracks, ht,
+                                          t_two_stage, dev))
+        del tracks, ht
+        with tempfile.TemporaryDirectory() as d:
+            summary.update(phase_streaming(torch, rec, {"dir": d}, dev))
         summary.update(phase_cli())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     print("summary: " + json.dumps(summary, default=float))
-    kernels = [
-        dict(name="prune_fwd_bwd", route="cuda",
-             source="audfprint_torch/csrc/prune.cu",
-             replaces="audfprint_tpu/ops/pallas_peaks.py:316",
-             **rec["prune_fwd_bwd"]),
-        dict(name="hpf_scan", route="cuda",
-             source="audfprint_torch/csrc/hpf.cu",
-             replaces="audfprint_tpu/ops/spectro.py:77",
-             **rec["hpf_scan"]),
-    ]
+    paths = rec.pop("_paths")
+    kernels = []
+    for name, source, replaces in (
+            ("prune_fwd_bwd", "audfprint_torch/csrc/prune.cu",
+             "audfprint_tpu/ops/pallas_peaks.py:316"),
+            ("prune_fwd_carry", "audfprint_torch/csrc/prune.cu",
+             "audfprint_tpu/ops/peaks.py:111"),
+            ("hpf_scan", "audfprint_torch/csrc/hpf.cu",
+             "audfprint_tpu/ops/spectro.py:77")):
+        by_path = {p: c.get(name, 0) for p, c in paths.items()}
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces,
+                            launches=sum(by_path.values()),
+                            launches_by_path=by_path, **rec[name]))
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """audfprint_torch CLI on the CPU: the golden session byte for byte, the
-port running without JAX in a fresh process, and the not-yet-ported
-flags refusing with a pointer to ROADMAP.md."""
+port running without JAX in a fresh process, the not-yet-ported flags
+refusing with a pointer to ROADMAP.md, and long WAVs streaming."""
 
 import functools
 import os
@@ -73,7 +73,8 @@ def test_port_runs_without_jax(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["warmup"], ["match", "--device-store"], ["match", "--ndev", "2"],
+    ["warmup"], ["new", "--device-store", "--ndev", "2"],
+    ["match", "--ndev", "2"],
     ["match", "--listen"], ["match", "--windowed", "5"],
     ["match", "--speed-sweep", "3"], ["match", "-I"],
     ["new", "--profile", "trace"]])
@@ -92,14 +93,15 @@ def test_wide_table_exits_nonzero(tmp_path, capsys):
 
 
 def test_long_wav_refuses_streaming(tmp_path):
-    """A WAV past stream_above_sec raises instead of batching quietly."""
+    """A WAV past stream_above_sec is no longer refused: it takes the
+    streamed route, and an all-zero one yields no hashes."""
     path = str(tmp_path / "long.wav")
     audio_write_wav(path, np.zeros(3 * 11025, np.float32), 11025)
     an = Analyzer(device="cpu")
     an.stream_above_sec = 1.0
-    with pytest.raises(NotImplementedError,
-                       match="streaming ingest is not yet ported"):
-        an.wavfile2hashes(path)
+    assert an._should_stream(path)
+    assert an.wavfile2hashes(path).shape == (0, 2)
+    assert an.soundfiledur == 3.0
 
 
 def test_analyzer_file_api_matches_jax(tmp_path):

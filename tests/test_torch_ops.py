@@ -73,7 +73,7 @@ def test_hpf_bit_exact(seed):
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((3, 64, 256)) * 4.0).astype(np.float32)
     want = np.asarray(SPj.hpf(jnp.asarray(x), CFG))
-    got = SP.hpf(_t(x), CFG).numpy()
+    got = SP.hpf(_t(x), CFG)[0].numpy()
     assert np.array_equal(got, want)
 
 
@@ -239,6 +239,9 @@ def test_kernel_wrappers_refuse_other_devices():
                          torch.empty((1, 8), device="meta"),
                          torch.empty((1, 8), device="meta"),
                          torch.empty(15, device="meta"), CFG.a_dec, 5)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        CP.prune_fwd_carry(x, torch.empty((1, 8), device="meta"),
+                           torch.empty(15, device="meta"), CFG.a_dec, 5)
 
 
 def test_kernel_build_is_keyed_by_sources():
@@ -260,8 +263,8 @@ def cuda_device():
 @pytest.mark.cuda
 def test_k2_matches_plain_on_card(cuda_device):
     x = torch.randn((4, 300, 256), generator=torch.Generator().manual_seed(0))
-    got = SP.hpf(x.to(cuda_device), CFG)
-    want = SP.hpf_plain(x.to(cuda_device), CFG)
+    got = SP.hpf(x.to(cuda_device), CFG)[0]
+    want = SP.hpf_plain(x.to(cuda_device), CFG)[0]
     assert torch.equal(got, want)
 
 
