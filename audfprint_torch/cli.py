@@ -1,15 +1,16 @@
 """Command-line interface (port of audfprint_tpu/cli.py, single device).
 
 Same commands (new | add | precompute | merge | newmerge | match | list |
-remove), same flags and defaults, same output lines.  Ingest and match run
-batched on one device with the host HashTable store and the host merge;
-`--device-store` keeps the table on the device during new/add
+remove | warmup), same flags and defaults, same output lines.  Ingest and
+match run batched on one device with the host HashTable store and the host
+merge; `--device-store` keeps the table on the device during new/add
 (models/ingest.py), and WAVs longer than `--stream-above` seconds are
 analysed in chunks of `--stream-chunk` frames (models/streaming.py).
-Flags of the JAX CLI whose machinery is not ported yet (--ndev > 1,
-warmup, --listen, --windowed, --speed-sweep, --illustrate,
---illustrate-hpf, --sonify, --profile, wide --idbits tables) exit with
-status 2 and a message pointing at ROADMAP.md.
+`match` also serves `--windowed` (broadcast monitoring), `--speed-sweep`,
+`--listen` (a stdin serving loop) and the `-I`/`-J`/`--sonify`
+diagnostics; `--profile DIR` writes a torch.profiler trace; `--idbits`
+past 32 - maxtimebits makes a wide table.  Only `--ndev > 1` is not
+ported: it exits with status 2 and a message pointing at ROADMAP.md.
 
 The device is a keyword of `main` (CUDA by default), so tests can drive
 the CLI on the CPU: `main(argv, device="cpu")`.
@@ -19,21 +20,25 @@ from __future__ import annotations
 
 import argparse
 import os
+import queue
 import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 from audfprint_tpu import params as P
 from audfprint_tpu.index.hash_table import HashTable
 from audfprint_tpu.utils import audio as audio_io
 from audfprint_tpu.utils import formats
 from audfprint_tpu.utils.timing import Stages
-from audfprint_torch.match.matcher import Matcher
+from audfprint_torch.match.matcher import Matcher, slice_hash_windows
 from audfprint_torch.models.analyzer import Analyzer
 from audfprint_torch.models.ingest import DeviceIngest
 from audfprint_torch.ops import cuda_peaks as CP
 from audfprint_torch.ops import spectro as SP
+from audfprint_torch.utils.device import resolve_device
 
 COMMANDS = ("new", "add", "precompute", "merge", "newmerge", "match",
             "list", "remove", "warmup")
@@ -92,21 +97,42 @@ def make_parser() -> argparse.ArgumentParser:
     a("--ndev", type=int, default=None,
       help="devices for store/match (only 1 is ported)")
     a("--idbits", type=int, default=0,
-      help="track-id bits of the entry packing (0 = 32 - maxtimebits; "
-           "wide tables past 32 bits are not ported)")
+      help="track-id bits of the entry packing (0 = the reference's "
+           "32 - maxtimebits). idbits + maxtimebits > 32 switches to "
+           "wide 64-bit entries: capacity beyond the reference's 2^18 "
+           "tracks / mod-16384 time cap")
     a("--device-store", dest="device_store", action="store_true",
       help="new/add: keep the hash table on the device and fingerprint + "
            "store each chunk in one pass; the saved database equals the "
            "host store's")
     a("--speed-sweep", dest="speed_sweep", type=float, default=0.0,
-      help="not yet ported")
+      help="match: also fingerprint each query at speed corrections up "
+           "to +/-PCT%% (1%% steps, extra device batch rows) and report "
+           "the best-scoring variant. Recovers speed-changed queries "
+           "that landmark dt/df quantization inherently misses "
+           "(capability beyond the reference; default off keeps output "
+           "bit-identical)")
     a("--windowed", type=float, default=0.0, metavar="SEC",
-      help="not yet ported")
+      help="match: broadcast-monitoring mode - slice each (long) query "
+           "into SEC-second windows (hash-domain slicing after ONE "
+           "fingerprint pass; all windows matched as one device batch) "
+           "and report each window's matches as '<query> t=<start>s'. "
+           "Finds every DB track occurring anywhere inside a long "
+           "recording (capability beyond the reference)")
     a("--window-hop", dest="window_hop", type=float, default=0.0,
-      metavar="SEC", help="not yet ported")
+      metavar="SEC", help="match --windowed: window hop in seconds "
+                          "(default SEC/2, 50%% overlap)")
     a("--warm-durations", dest="warm_durations", type=str, default="5,10",
-      help="not yet ported")
-    a("--listen", action="store_true", help="not yet ported")
+      help="warmup: comma-separated query durations (seconds) whose "
+           "fingerprint + match paths to run once")
+    a("--listen", action="store_true",
+      help="match: serving loop - read query paths from stdin (one per "
+           "line), match against the cached device table, and emit "
+           "result lines immediately (flushed), in input order. Pending "
+           "lines are drained and served as ONE device batch (up to "
+           "--batchsize): interactive callers keep single-query latency, "
+           "backlogged pipes get batched-match throughput. EOF ends; "
+           "blank lines are ignored (capability beyond the reference)")
     a("--stream-above", dest="stream_above", type=float, default=3600.0,
       metavar="SEC",
       help="WAV inputs longer than SEC analyse in fixed-size chunks with "
@@ -116,34 +142,12 @@ def make_parser() -> argparse.ArgumentParser:
       metavar="FRAMES",
       help="streamed ingest chunk size in analysis frames (~190 s at the "
            "defaults); results are identical at any value")
-    a("--profile", type=str, default=None, help="not yet ported")
+    a("--profile", type=str, default=None,
+      help="write a torch.profiler Chrome trace (host and CUDA activity) "
+           "to this directory")
     a("--json-metrics", dest="json_metrics", type=str, default=None,
       help="write per-stage timing/counters JSON to this file")
     return p
-
-
-def _unported(args) -> str | None:
-    """The first requested feature this port does not have yet, or None."""
-    checks = [
-        (args.command == "warmup", "warmup"),
-        (args.ndev not in (None, 1), "--ndev > 1"),
-        (args.listen, "--listen"),
-        (args.windowed > 0, "--windowed"),
-        (args.speed_sweep > 0, "--speed-sweep"),
-        (args.illustrate or args.illustrate_hpf or args.sonify,
-         "--illustrate/--illustrate-hpf/--sonify"),
-        (args.profile is not None, "--profile"),
-    ]
-    for hit, name in checks:
-        if hit:
-            return name
-    return None
-
-
-def _refuse(name: str) -> int:
-    print(f"audfprint_torch: {name} is not yet ported; see ROADMAP.md "
-          "(python -m audfprint_tpu has it)", file=sys.stderr)
-    return 2
 
 
 def setup_analyzer(args, device) -> Analyzer:
@@ -170,6 +174,9 @@ def setup_matcher(args, device) -> Matcher:
                    time_quantile=args.time_quantile,
                    sort_by_time=args.sortbytime,
                    verbose=args.verbose,
+                   illustrate=args.illustrate,
+                   illustrate_hpf=args.illustrate_hpf,
+                   sonify=args.sonify,
                    device=device)
 
 
@@ -460,17 +467,31 @@ def do_match(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
              names: list, args, report,
              stages: Stages) -> tuple[int, float]:
     """Batched query matching with decode/compute overlap; output lines
-    follow the input order.  Chunks of decoded audio take the fused
-    fingerprint+match path; chunks holding precomputed inputs (or past
-    the memory budget) fingerprint, then match the hashes."""
+    follow the input order.  Plain chunks of decoded audio take the fused
+    fingerprint+match path; the others (precomputed inputs, past the
+    memory budget, --windowed, --speed-sweep) fingerprint, then match the
+    hashes: windows of every file in the chunk as one batch, or each
+    query with its speed variants (base hashes only without a sweep)."""
     tot_dur = 0.0
     n_done = 0
     B = max(1, args.batchsize)
     chunks = [names[i: i + B] for i in range(0, len(names), B)]
+    pct = args.speed_sweep
+    wsec, whop = args.windowed, args.window_hop
+    fps = analyzer.target_sr / float(analyzer.n_hop)
+    # windows need the hashes, speed variants the samples, on the host
+    fused_ok = wsec <= 0 and not pct
+
+    def emit(label, rrows, dur, nh, suffix=""):
+        msgs = matcher.results_to_msgs(rrows, dur, nh, analyzer, ht, label)
+        if suffix:
+            msgs[0] += suffix
+        for msg in msgs:
+            report(msg)
 
     def dispatch(ordered):
         sigs = _wav_signals(ordered)
-        if sigs and len(sigs) == len(ordered):
+        if fused_ok and sigs and len(sigs) == len(ordered):
             h = matcher.match_samples_fused_async(analyzer, ht, sigs)
             if h is not None:
                 return ("fused", h)
@@ -482,25 +503,159 @@ def do_match(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
         if tag == "fused":
             with stages.time("match"):
                 res, nh = matcher.match_fused_resolve(analyzer, ht, payload)
-            rows = [(name, r, len(d) / analyzer.target_sr, n)
-                    for (name, _k, d), r, n in zip(ordered, res, nh)]
-        else:
-            with stages.time("analyze"):
-                hashes = iter(analyzer.fingerprint_resolve(payload))
-            hrows = _resolve_chunk(analyzer, ordered, hashes, report)
+            for (name, _k, d), rrows, n in zip(ordered, res, nh):
+                dur = len(d) / analyzer.target_sr
+                emit(name, rrows, dur, n)
+                tot_dur += dur
+                n_done += 1
+            return
+        with stages.time("analyze"):
+            hashes = iter(analyzer.fingerprint_resolve(payload))
+        rows = _resolve_chunk(analyzer, ordered, hashes, report)
+        if not rows:
+            return
+        if wsec > 0:
+            # the summary counts files, not windows
+            n_done += len(rows)
+            tot_dur += sum(dur for _, _, dur in rows)
+            wrows = [(f"{name} t={t0:.1f}s", sel, wdur)
+                     for name, h, dur in rows
+                     for t0, sel, wdur in slice_hash_windows(h, dur, wsec,
+                                                             fps, whop)]
             with stages.time("match"):
-                res = matcher.match_hashes_batch(ht, [h for _, h, _ in hrows])
-            rows = [(name, r, dur, len(h))
-                    for (name, h, dur), r in zip(hrows, res)]
-        for name, rrows, dur, nh in rows:
-            for msg in matcher.results_to_msgs(rrows, dur, nh, analyzer, ht,
-                                               name):
-                report(msg)
+                wres = matcher.match_hashes_batch(
+                    ht, [h for _, h, _ in wrows])
+            for (label, h, wdur), rrows in zip(wrows, wres):
+                emit(label, rrows, wdur, len(h))
+            return
+        # precomputed rows have no samples: their base hashes only
+        smp = {n: d for n, kind, d in ordered
+               if kind == "wav" and d is not None}
+        with stages.time("match"):
+            best = matcher.match_samples_sweep(
+                analyzer, ht, [smp.get(n) for n, _, _ in rows], pct,
+                base_hashes=[h for _, h, _ in rows])
+        for (name, _h, dur), (rrows, f, nh) in zip(rows, best):
+            emit(name, rrows, dur, nh,
+                 f" (speed {round((f - 1) * 100):+d}%)"
+                 if f != 1.0 and len(rrows) else "")
             tot_dur += dur
             n_done += 1
 
     _run_pipelined(chunks, analyzer, args, report, stages, consume, dispatch)
     return n_done, tot_dur
+
+
+def do_warmup(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
+              args, report) -> int:
+    """`warmup -d db`: get a serving process ready before its first query.
+    Builds the kernel library into build/audfprint_torch/ if it is missing
+    (a later process loads it instead of running nvcc), uploads the table,
+    and runs the two-stage and the fused fingerprint + match once for each
+    --warm-durations bucket at sub-batch sizes 1 and --batchsize's power
+    of two: the shapes a `match` / `match --listen` process uses, so cuFFT
+    plans and the caching allocator are set up too.
+
+    Returns the count the JAX package reports: one fingerprint batch per
+    duration plus one or two match paths per batch size (the fused one
+    only where it is eligible)."""
+    if analyzer.device.type == "cuda":
+        from audfprint_torch.ops import _build
+        _build.load()
+    rng = np.random.default_rng(0)
+    sr = analyzer.target_sr
+    durs = [float(x) for x in args.warm_durations.split(",") if x.strip()]
+    bmax = P.next_pow2(max(1, args.batchsize))
+    bsizes = sorted({1, bmax})
+    n_graphs = 0
+    for d in durs:
+        n = max(1, int(d * sr))
+        clips = [0.1 * rng.standard_normal(n).astype(np.float32)
+                 for _ in range(bmax)]
+        hashes = analyzer.samples_batch2hashes(clips)
+        for b in bsizes:
+            matcher.match_hashes_batch(ht, hashes[:b])
+            fused = matcher.match_samples_fused(analyzer, ht, clips[:b])
+            n_graphs += 2 if fused is not None else 1
+        report(f"warmed {d:g} s bucket (batch sizes {bsizes})")
+    return len(durs) + n_graphs
+
+
+def do_listen(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
+              args, report, stages: Stages, out_f,
+              stream=None) -> tuple[int, float]:
+    """`match --listen`: a serving loop over query paths, one per line of
+    `stream` (stdin by default).  Each group goes through do_match against
+    the device table (uploaded once, cached by Matcher._device_state), and
+    its result lines are flushed in input order.  Blank lines are skipped;
+    EOF ends the loop.
+
+    A reader thread feeds a queue; each iteration drains the lines already
+    waiting (up to --batchsize) and serves them as one batch, never
+    waiting for more, so an interactive caller (write a path, wait for the
+    answer) gets single-query latency and a backlog is served in batches.
+
+    A bad request must not end the service: decode and load errors are
+    reported as "Error reading <name>: ..." (fail_on_error is off for the
+    loop and restored after it).  Any other error, a CUDA one included,
+    propagates."""
+    stream = stream if stream is not None else sys.stdin
+    prev_fail = analyzer.fail_on_error
+    analyzer.fail_on_error = False
+    n_files, tot_dur = 0, 0.0
+    lines: queue.Queue = queue.Queue()
+    eof_mark = object()
+
+    def _reader():
+        for line in stream:
+            lines.put(line)
+        lines.put(eof_mark)
+
+    threading.Thread(target=_reader, daemon=True).start()
+    cap = max(1, args.batchsize)
+    eof = False
+    try:
+        while not eof:
+            item = lines.get()
+            if item is eof_mark:
+                break
+            names = []
+            while True:
+                name = item.strip()
+                if name:
+                    names.append(name)
+                if len(names) >= cap:
+                    break
+                try:
+                    item = lines.get_nowait()
+                except queue.Empty:
+                    break
+                if item is eof_mark:
+                    eof = True
+                    break
+            if not names:
+                continue
+            n, d = do_match(ht, analyzer, matcher, names, args, report,
+                            stages)
+            n_files += n
+            tot_dur += d
+            (out_f or sys.stdout).flush()
+    finally:
+        analyzer.fail_on_error = prev_fail
+    return n_files, tot_dur
+
+
+def _start_profile(device):
+    """A started torch.profiler session: host activity, plus CUDA activity
+    (CUPTI) on a CUDA device."""
+    import torch.profiler as tp
+
+    acts = [tp.ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        acts.append(tp.ProfilerActivity.CUDA)
+    prof = tp.profile(activities=acts)
+    prof.start()
+    return prof
 
 
 def main(argv=None, device=None) -> int:
@@ -511,21 +666,26 @@ def main(argv=None, device=None) -> int:
     cmd = args.command
     if args.shifts == 0:
         args.shifts = 1
-    name = _unported(args)
-    if name is not None:
-        return _refuse(name)
+    if args.ndev not in (None, 1):
+        print("audfprint_torch: --ndev > 1 is not yet ported; see ROADMAP.md "
+              "(python -m audfprint_tpu has it)", file=sys.stderr)
+        return 2
+    if args.windowed > 0 and args.speed_sweep > 0:
+        # the sweep needs decoded samples per variant; windows are sliced
+        # in the hash domain after one fingerprint pass
+        print("--windowed cannot be combined with --speed-sweep",
+              file=sys.stderr)
+        return 2
     if cmd in ("new", "newmerge", "add", "match", "merge", "list",
-               "remove") and not args.dbase:
+               "remove", "warmup") and not args.dbase:
         print("a --dbase is required for " + cmd, file=sys.stderr)
         return 2
     if cmd in ("new", "newmerge"):
         ht = _new_table(args)
-    elif cmd in ("add", "match", "merge", "list", "remove"):
+    elif cmd in ("add", "match", "merge", "list", "remove", "warmup"):
         ht = HashTable(args.dbase)
     else:
         ht = None
-    if ht is not None and ht.wide:
-        return _refuse("a wide-entry table (--idbits)")
 
     out_f = open(args.opfile, "w") if args.opfile else None
     report_lock = threading.Lock()
@@ -538,13 +698,17 @@ def main(argv=None, device=None) -> int:
             else:
                 print(msg)
 
+    prof = None
     try:
         stages = Stages()
+        if args.profile:
+            os.makedirs(args.profile, exist_ok=True)
+            prof = _start_profile(device)
         t0 = time.time()
         n_files, tot_dur = 0, 0.0
         names = list(filename_list_iterator(
             args.file, args.wavdir, args.wavext, args.listflag))
-        if cmd in ("new", "add", "precompute", "match"):
+        if cmd in ("new", "add", "precompute", "match", "warmup"):
             analyzer = setup_analyzer(args, device)
         if cmd in ("new", "add"):
             if cmd == "add":
@@ -557,13 +721,23 @@ def main(argv=None, device=None) -> int:
             n_files, tot_dur = do_precompute(analyzer, names, args, report)
         elif cmd == "match":
             _check_params(ht, analyzer, report)
-            n_files, tot_dur = do_match(ht, analyzer,
-                                        setup_matcher(args, device), names,
-                                        args, report, stages)
+            matcher = setup_matcher(args, device)
+            if args.listen:
+                n_files, tot_dur = do_listen(ht, analyzer, matcher, args,
+                                             report, stages, out_f)
+            else:
+                n_files, tot_dur = do_match(ht, analyzer, matcher, names,
+                                            args, report, stages)
         elif cmd in ("merge", "newmerge"):
             do_merge(ht, names, report, stages)
             with stages.time("save"):
                 ht.save(args.dbase)
+        elif cmd == "warmup":
+            _check_params(ht, analyzer, report)
+            n = do_warmup(ht, analyzer, setup_matcher(args, device), args,
+                          report)
+            report(f"warmup: {n} serving graphs compiled/cached in "
+                   f"{time.time() - t0:.1f} s")
         elif cmd == "list":
             ht.list(report)
         elif cmd == "remove":
@@ -573,6 +747,12 @@ def main(argv=None, device=None) -> int:
             ht.save(args.dbase)
 
         elapsed = time.time() - t0
+        if prof is not None:
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(
+                args.profile, f"audfprint_torch.{os.getpid()}.trace.json"))
+            prof = None
+            report(f"profiler trace written to {args.profile}")
         if cmd in ("new", "add", "precompute", "match") and args.verbose:
             ratio = elapsed / tot_dur if tot_dur > 0 else 0.0
             report(f"Processed {n_files} files ({tot_dur:.1f} s total dur) "
@@ -586,6 +766,8 @@ def main(argv=None, device=None) -> int:
                             kernel_launches={**SP.launches, **CP.launches})
             stages.dump_json(args.json_metrics)
     finally:
+        if prof is not None:         # a command raised: end the session
+            prof.stop()
         if out_f is not None:
             out_f.close()
     return 0

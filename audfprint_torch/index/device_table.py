@@ -14,6 +14,13 @@ index_put_ on uint32 on the CPU, so every uint32 quantity that needs
 arithmetic (gathered entries, the reservoir hash) is widened to int64 and
 masked to 32 bits; an int32 shift would sign-extend entries whose top bit
 is set (ids >= 2^17 at maxtimebits=14).
+
+Wide tables (idbits + maxtimebits > 32, `--idbits`) keep their entries in
+one int64 plane of the same (n_buckets, depth) shape, an int64 view of the
+host uint64 array (800 MB at the defaults).  idbits and maxtimebits are
+each at most 31, so an entry stays below 2^62: it is never negative as an
+int64, and the arithmetic >> that torch applies to int64 equals the
+logical shift of the uint64.
 """
 
 from __future__ import annotations
@@ -59,14 +66,14 @@ def config_for(ht) -> TableConfig:
 def table_to_device(ht, device) -> tuple[torch.Tensor, torch.Tensor,
                                          TableConfig]:
     """Upload a host HashTable: (table (nb, depth) int32 view of the uint32
-    entries, counts (nb,) int32, cfg)."""
+    entries, or int64 view of the uint64 entries of a wide table, counts
+    (nb,) int32, cfg)."""
     cfg = config_for(ht)
     if cfg.wide:
-        raise NotImplementedError(
-            "wide tables (--idbits past 32 - maxtimebits) are not yet ported "
-            "to audfprint_torch (ROADMAP.md)")
-    table = torch.from_numpy(
-        np.ascontiguousarray(ht.table, dtype=np.uint32).view(np.int32))
+        host = np.ascontiguousarray(ht.table, dtype=np.uint64).view(np.int64)
+    else:
+        host = np.ascontiguousarray(ht.table, dtype=np.uint32).view(np.int32)
+    table = torch.from_numpy(host)
     counts = torch.from_numpy(np.ascontiguousarray(ht.counts, np.int32))
     return table.to(device), counts.to(device), cfg
 
@@ -77,14 +84,18 @@ def get_hits_local(table: torch.Tensor, counts: torch.Tensor,
                    bucket_lo: int = 0):
     """(B, Q) queries -> (ids, dts, hvalid) each (B, Q, depth) int32 /
     int32 / bool, restricted to the bucket range owned by this table.
-    Row order per query == reference get_hits (slot order per query hash)."""
+    Row order per query == reference get_hits (slot order per query hash).
+    Packed entries widen to int64 masked to 32 bits; wide ones are int64
+    already and below 2^62, so the shift below is logical for both."""
     n_local = table.shape[0]
     hashmask = (1 << cfg.hashbits) - 1
     timemask = cfg.maxtime - 1
     qh = (qhashes.long() & hashmask) - bucket_lo
     own = (qh >= 0) & (qh < n_local)
     qh = torch.clamp(qh, 0, n_local - 1)
-    tab = table[qh].long() & 0xFFFFFFFF              # (B, Q, depth)
+    tab = table[qh].long()                           # (B, Q, depth)
+    if not cfg.wide:
+        tab = tab & _M32
     nids = torch.clamp(counts[qh], max=cfg.depth)
     slotidx = torch.arange(cfg.depth, device=table.device)
     hvalid = ((slotidx[None, None, :] < nids[:, :, None])
@@ -134,12 +145,10 @@ def reservoir_slot_device(bucket: torch.Tensor, position: torch.Tensor,
 
 def empty_table(cfg: TableConfig, device) -> tuple[torch.Tensor,
                                                    torch.Tensor]:
-    """A zeroed (n_buckets, depth) int32 table and (n_buckets,) counts."""
-    if cfg.wide:
-        raise NotImplementedError(
-            "wide tables (--idbits past 32 - maxtimebits) are not yet ported "
-            "to audfprint_torch (ROADMAP.md)")
-    return (torch.zeros((cfg.n_buckets, cfg.depth), dtype=torch.int32,
+    """A zeroed (n_buckets, depth) table, int32 (int64 when wide), and
+    (n_buckets,) counts."""
+    dtype = torch.int64 if cfg.wide else torch.int32
+    return (torch.zeros((cfg.n_buckets, cfg.depth), dtype=dtype,
                         device=device),
             torch.zeros(cfg.n_buckets, dtype=torch.int32, device=device))
 
@@ -159,7 +168,9 @@ def store_batch_local(table: torch.Tensor, counts: torch.Tensor,
     B, L = hashes.shape
     t = times.to(torch.int64) & (cfg.maxtime - 1)
     u = ids.to(device=table.device, dtype=torch.int64)[:, None].expand(B, L)
-    entry = ((u << cfg.maxtimebits) | t) & _M32
+    entry = (u << cfg.maxtimebits) | t
+    if not cfg.wide:
+        entry = entry & _M32
     store_packed_local(table, counts, hashes.reshape(-1), entry.reshape(-1),
                        valid.reshape(-1), cfg, bucket_lo)
 
@@ -168,8 +179,9 @@ def store_packed_local(table: torch.Tensor, counts: torch.Tensor,
                        hashes: torch.Tensor, entry: torch.Tensor,
                        valid: torch.Tensor, cfg: TableConfig,
                        bucket_lo: int = 0) -> None:
-    """Insert pre-packed entries (= (id << maxtimebits) | t, uint32 values
-    in any integer dtype) in arrival order, in place.
+    """Insert pre-packed entries (= (id << maxtimebits) | t: uint32 values
+    in any integer dtype, or uint64 values in int64 for a wide table) in
+    arrival order, in place.
 
     Stable sort by bucket -> rank within the bucket -> insertion position
     counts[bucket] + rank -> the deterministic reservoir slot past the
@@ -207,7 +219,8 @@ def store_packed_local(table: torch.Tensor, counts: torch.Tensor,
     last[:-1] = key2[1:] != key2[:-1]
     hs2, sk2 = hs[perm], skey[perm]
     do = last & (sk2 < depth) & (hs2 < n_local)
-    table[hs2[do], sk2[do]] = _as_int32(es[perm][do])
+    es2 = es[perm][do]
+    table[hs2[do], sk2[do]] = es2 if cfg.wide else _as_int32(es2)
     counts += torch.bincount(hkey, minlength=n_local + 1)[:n_local].to(
         counts.dtype)
 
@@ -227,7 +240,8 @@ def store_batch(table: torch.Tensor, counts: torch.Tensor,
 
 def table_to_host(table: torch.Tensor, counts: torch.Tensor, ht) -> None:
     """Download device state into a host HashTable (names managed by the
-    caller)."""
-    ht.table = table.cpu().numpy().view(np.uint32)
+    caller); an int64 table is a wide one and comes back as uint64."""
+    host = table.cpu().numpy()
+    ht.table = host.view(np.uint64 if host.dtype == np.int64 else np.uint32)
     ht.counts = counts.cpu().numpy().astype(np.int32)
     ht.dirty = True

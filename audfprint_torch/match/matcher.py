@@ -6,7 +6,10 @@ match_hashes / match_file / file_match_to_msgs run the compacted-RLE vote
 (HashTable, revision), so repeated queries against one DB pay the transfer
 once.  The fused path fingerprints and matches a batch of sample arrays in
 one call (_fused_match_graph) and re-matches the rare row past its static
-caps through the two-stage path, so it never changes results.
+caps through the two-stage path, so it never changes results.  The serving
+modes ride the batched match: match_hashes_windowed (broadcast monitoring)
+and match_samples_sweep (playback-speed corrections); illustrate_match and
+sonify_match are host diagnostics on top of match_hashes.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from audfprint_tpu import params as P
+from audfprint_tpu.utils import audio as audio_io
 from audfprint_torch.index import device_table as DT
 from audfprint_torch.match import voting
 from audfprint_torch.ops import pipeline as pipe
@@ -94,6 +98,9 @@ class Matcher:
                  time_quantile: float = P.TIME_QUANTILE,
                  sort_by_time: bool = False,
                  verbose: int = 1,
+                 illustrate: bool = False,
+                 illustrate_hpf: bool = False,
+                 sonify: bool = False,
                  ndev: int | None = 1,
                  device=None):
         if ndev not in (None, 1):
@@ -110,6 +117,9 @@ class Matcher:
         self.time_quantile = time_quantile
         self.sort_by_time = sort_by_time
         self.verbose = verbose
+        self.illustrate = illustrate
+        self.illustrate_hpf = illustrate_hpf
+        self.sonify = sonify
         self._dev = None          # (weakref to ht, revision) -> device state
 
     # Device-memory budget for one voting call; None = derive from the
@@ -219,6 +229,58 @@ class Matcher:
             tcfg, self._mcfg(qt_cap, ncap)).cpu().numpy()
         return [out[b, : int(out[b, :, 6].sum()), :6].astype(np.int64)
                 for b in range(B)]
+
+    def match_hashes_windowed(self, ht, hashes, dur: float,
+                              window_sec: float, fps: float,
+                              hop_sec: float = 0.0) -> list:
+        """Broadcast monitoring over one long query: hash-domain window
+        slicing (slice_hash_windows) and one batched match over all
+        windows.  fps = analyzer.target_sr / analyzer.n_hop.  Returns
+        [(t0_sec, rows, n_window_hashes, win_dur_sec)]."""
+        wins = slice_hash_windows(hashes, dur, window_sec, fps, hop_sec)
+        res = self.match_hashes_batch(ht, [h for _, h, _ in wins])
+        return [(t0, rows, len(h), wdur)
+                for (t0, h, wdur), rows in zip(wins, res)]
+
+    def match_samples_sweep(self, analyzer, ht, samples: list, pct: float,
+                            base_hashes: list | None = None) -> list:
+        """Batched match with a query playback-speed correction sweep:
+        each query is also fingerprinted at +/-pct% time-scale corrections
+        in 1% steps, all variants are matched in one batch, and the best
+        rank-0 aligned count wins, unity on ties.
+
+        samples[i] = float32/int16 sample array, or None to match only
+        base_hashes[i] (a precomputed input has no audio).  base_hashes:
+        the (t, hash) arrays aligned with samples (computed when omitted).
+        Returns [(rows, factor, nhash_of_winner)] per query."""
+        factors = sweep_factors(pct)
+        if base_hashes is None:
+            it = iter(analyzer.samples_batch2hashes(
+                [s for s in samples if s is not None]))
+            base_hashes = [next(it) if s is not None
+                           else np.zeros((0, 2), np.int32) for s in samples]
+        sigs, meta = [], []
+        for i, d in enumerate(samples):
+            if d is None or not factors:
+                continue
+            if d.dtype == np.int16:
+                d = d.astype(np.float32) / float(1 << 15)
+            for f in factors:
+                # the integer ratio 100 : 100 + pct, as in the JAX package
+                sigs.append(audio_io._resample(
+                    d, 100, 100 + round((f - 1) * 100)))
+                meta.append((i, f))
+        vlists = analyzer.samples_batch2hashes(sigs) if sigs else []
+        results = self.match_hashes_batch(ht, list(base_hashes) + vlists)
+
+        def score(rr):
+            return int(rr[0][1]) if len(rr) else 0
+
+        best = [(rr, 1.0, len(h)) for rr, h in zip(results, base_hashes)]
+        for (i, f), rr, h in zip(meta, results[len(base_hashes):], vlists):
+            if score(rr) > score(best[i][0]):      # unity wins ties
+                best[i] = (rr, f, len(h))
+        return best
 
     # -- fused fast path ---------------------------------------------------
 
@@ -333,4 +395,118 @@ class Matcher:
                                f"at {aligntime * t_hop:.1f} s "
                                f"with {nhashaligned} of {nhashraw} "
                                f"common hashes at rank {rank}")
+        if self.illustrate or self.illustrate_hpf:
+            self.illustrate_match(analyzer, ht, qry)
+        if self.sonify:
+            self.sonify_match(analyzer, ht, qry)
         return msgrslt
+
+    # -- diagnostics --------------------------------------------------------
+
+    def _matched_rows(self, ht, hashes, rows) -> set:
+        """(t, hash) query rows aligned with the rank-0 match: hits of its
+        track within +/-window of its mode dt (host get_hits)."""
+        if not len(rows):
+            return set()
+        mode, tid = int(rows[0][2]), int(rows[0][0])
+        hits = ht.get_hits(hashes)
+        alig = hits[(hits[:, 0] == tid)
+                    & (np.abs(hits[:, 1] - mode) <= self.window)]
+        return {(int(q), int(h)) for h, q in zip(alig[:, 2], alig[:, 3])}
+
+    def illustrate_match(self, analyzer, ht, filename: str,
+                         out_png: str | None = None,
+                         show: bool | None = None,
+                         hpf: bool | None = None):
+        """Spectrogram + landmark overlay with the matched landmarks
+        highlighted (the JAX package's illustrate_match).
+
+        hpf=None follows the matcher's flags: `-I` draws the plain
+        whitened log-magnitude spectrogram, `-J` the onset-high-passed
+        one.  show=None displays when a display exists and no out_png was
+        asked for, else saves <filename>.match.png."""
+        import os
+        if show is None:
+            show = out_png is None and bool(
+                os.environ.get("DISPLAY")
+                or os.environ.get("MPLBACKEND", "").lower()
+                not in ("", "agg"))
+        try:
+            import matplotlib
+            if not show:
+                matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            print("illustrate_match: matplotlib not available; skipping")
+            return None
+        from audfprint_tpu.oracle import analyze as oa
+
+        if hpf is None:
+            hpf = bool(self.illustrate_hpf)
+        d = analyzer.read_audio(filename)
+        sg = oa.spectrogram(d, P.AnalyzerParams(
+            density=analyzer.density, n_fft=analyzer.n_fft,
+            n_hop=analyzer.n_hop, f_sd=analyzer.f_sd), hpf=hpf)
+        hashes = analyzer.samples2hashes(d)
+        rows = self.match_hashes(ht, hashes)
+        fig, ax = plt.subplots(figsize=(12, 5))
+        ax.imshow(sg.T, origin="lower", aspect="auto", cmap="magma")
+        for t, f1, f2, dt in oa.hashes2landmarks(hashes):
+            ax.plot([t, t + dt], [f1, f2], "-", color="c", lw=0.6)
+        if len(rows):
+            qmatch = self._matched_rows(ht, hashes, rows)
+            matched = [(int(r[0]), int(r[1])) for r in hashes
+                       if (int(r[0]), int(r[1])) in qmatch]
+            for t, f1, f2, dt in oa.hashes2landmarks(
+                    np.array(matched, dtype=np.int64).reshape(-1, 2)):
+                ax.plot([t, t + dt], [f1, f2], "-", color="lime", lw=1.2)
+            ax.set_title(f"{filename}: matched {ht.names[int(rows[0][0])]} "
+                         f"dt={int(rows[0][2])} frames")
+        else:
+            ax.set_title(f"{filename}: NOMATCH")
+        if show:
+            plt.show()
+            plt.close(fig)
+            return None
+        out_png = out_png or filename + ".match.png"
+        fig.savefig(out_png, dpi=90)
+        plt.close(fig)
+        print(f"illustrate_match: wrote {out_png}")
+        return out_png
+
+    def sonify_match(self, analyzer, ht, filename: str,
+                     out_wav: str | None = None):
+        """Resynthesize the query's landmarks as sine-pair chirps, the
+        matched ones louder (the JAX package's sonify_match).  Writes
+        <filename>.sonify.wav."""
+        from audfprint_tpu.oracle import analyze as oa
+
+        sr = analyzer.target_sr
+        d = analyzer.read_audio(filename)
+        hashes = analyzer.samples2hashes(d)
+        matched = self._matched_rows(ht, hashes,
+                                     self.match_hashes(ht, hashes))
+        out = np.zeros(len(d), np.float32)
+        t_hop = analyzer.n_hop
+        bin_hz = sr / float(analyzer.n_fft)
+        for (t, f1, f2, dt), (tq, hsh) in zip(
+                oa.hashes2landmarks(hashes),
+                ((int(r[0]), int(r[1])) for r in hashes)):
+            amp = 0.5 if (tq, hsh) in matched else 0.12
+            s0 = t * t_hop
+            n = max(1, int(dt * t_hop))
+            m = min(n, len(out) - s0)       # clip chirps at the buffer end
+            if m <= 0:
+                continue
+            tt = np.arange(n) / sr
+            env = np.hanning(n) if n > 1 else np.ones(1)
+            seg = 0.5 * np.sin(2 * np.pi * f1 * bin_hz * tt)
+            seg += 0.5 * np.sin(2 * np.pi * f2 * bin_hz * tt)
+            out[s0: s0 + m] += (amp * env * seg)[:m].astype(np.float32)
+        peak = float(np.abs(out).max())
+        if peak > 0:
+            out = out / peak * 0.7
+        out_wav = out_wav or filename + ".sonify.wav"
+        audio_io.audio_write_wav(out_wav, out, sr)
+        print(f"sonify_match: wrote {out_wav}")
+        return out_wav

@@ -192,21 +192,23 @@ class DeviceIngest:
         slice (_slice_depth), or whole."""
         counts = self.counts.cpu().numpy()
         nb, depth = self.cfg.n_buckets, self.cfg.depth
+        # host entry type: uint64 for a wide table's int64 plane
+        host_t = np.uint64 if self.cfg.wide else np.uint32
         kmax = int(min(depth, counts.max())) if counts.size else 0
         k = min(depth, P.next_pow2(max(1, kmax), 1))
         occ = np.minimum(counts, depth).astype(np.int64)
         total = int(occ.sum())
         if P.next_pow2(max(1, total), 1) * 4 <= nb * k:
             packed = _compact_slots(self.table, self.counts, k)
-            packed = packed.cpu().numpy().view(np.uint32)
-            tab = np.zeros((nb, depth), np.uint32)
+            packed = packed.cpu().numpy().view(host_t)
+            tab = np.zeros((nb, depth), host_t)
             rowb = np.repeat(np.arange(nb), occ)
             off = np.cumsum(occ) - occ
             tab[rowb, np.arange(total) - off[rowb]] = packed
         elif kmax < depth:
-            tab = np.zeros((nb, depth), np.uint32)
+            tab = np.zeros((nb, depth), host_t)
             tab[:, :k] = _slice_depth(self.table, k).cpu().numpy().view(
-                np.uint32)
+                host_t)
         else:                            # full buckets: the whole table
             DT.table_to_host(self.table, self.counts, self.ht)
             self.ht.rev += 1

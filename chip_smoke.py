@@ -34,11 +34,41 @@ Phases (any failure exits non-zero before the result line):
      the offset of their start modulo maxtime
   9. the CLI as subprocesses (python -m audfprint_torch new / match, with
      and without --device-store), which must print a rank-0 "Matched"
-     line; then the golden CLI session of tests/golden/cli_session.txt on
-     the card, reporting differing lines
+     line; `new --idbits 20` with and without --device-store (equal wide
+     databases, rank-0 match), `match --windowed 4 --window-hop 2` on a
+     recording of two songs, `warmup` then `match --speed-sweep 4` on a
+     +4% query, and `match --profile DIR -I --sonify` (a trace naming
+     prune_fwd_bwd and hpf_scan, the sonify WAV); then the golden CLI
+     session of tests/golden/cli_session.txt on the card, reporting
+     differing lines
+ 10. BASELINE config 3 ("Noisy + resampled 5s queries with --shifts 4 /
+     --density 40 against the 1k-track DB") as benchmarks/baseline_configs
+     runs it: its own corpus of 1,000 x 30 s harmonic tracks
+     (bench.synth_batch, seeds 0-999, made bit for bit by harmonic_track)
+     in a default table, 32 queries of 3 s from tracks 0-31 under its 9
+     degradations, fingerprinted by the `noisy-query` preset and matched
+     plain, the 4 speed conditions again through
+     Matcher.match_samples_sweep(..., 4.0); recall >= 0.95 on clean, SNR
+     10, SNR 5 and lowpass 3 kHz, and the sweep recovering every speed
+     condition
+ 11. broadcast monitoring: a seeded 7,200 s WAV of 360 x 20 s segments,
+     every third a frame-aligned excerpt of a distinct config-2 track, the
+     rest fresh audio; `match --windowed 10 --window-hop 5` through
+     cli.do_match on phase 6's table (the file streams: K1f and K2); every
+     excerpt named at rank 0 by a window inside it, <= 5% of the windows
+     inside filler reporting a track
+ 12. the `match --listen` loop (cli.do_listen over an os.pipe) on phase
+     6's queries: 16 interactive requests (latency), then a backlog of 48
+     with one missing path; lines equal batch do_match's, in order, the
+     missing path reported, fewer do_match calls than backlog queries
+ 13. a default-size wide table (2^20 x 100 int64, --idbits 20): phase 6's
+     1,000 tracks stored on the card by DT.store_batch at sparse ids
+     2^18 + 769 i equal the host HashTable bit for bit, and the 64
+     queries match at rank 0 with their sparse ids through the fused path
 
-Each path of phases 6-8 runs with the kernels' launch counts set to 0
-just before it and read just after; the kernel record lists them by path.
+Each path of phases 6-8 and 10-13 runs with the kernels' launch counts
+set to 0 just before it and read just after; the kernel record lists them
+by path.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON record and the one before that the nvidia-smi line.
 The script imports no JAX.
@@ -111,6 +141,39 @@ def synth_track(rng, dur_sec: float, tones_per_sec: float = 8.0,
         x[i0: i0 + m] += rng.uniform(0.1, 0.5) * np.hanning(m) * np.sin(
             2 * np.pi * f * tt + rng.uniform(0, 2 * np.pi))
     return (x / max(1e-9, np.max(np.abs(x))) * 0.7).astype(np.float32)
+
+
+def harmonic_track(seed: int, n: int) -> np.ndarray:
+    """bench.synth_batch(1, n, seed=seed)[0] bit for bit (the corpus of
+    benchmarks/baseline_configs.py: harmonic note events with decaying
+    envelopes), touching only each note's own samples."""
+    rng = np.random.default_rng(seed)
+    x = 0.002 * rng.standard_normal(n)
+
+    def first_at(v):                      # first i with i / SR >= v
+        i = min(n, max(0, int(v * SR)))
+        while i > 0 and (i - 1) / SR >= v:
+            i -= 1
+        while i < n and i / SR < v:
+            i += 1
+        return i
+
+    for _ in range(max(8, int(n / SR * 10))):
+        f0 = 55 * 2 ** rng.uniform(1, 6)
+        s = rng.uniform(0, n / SR - 0.1)
+        L = rng.uniform(0.08, 0.5)
+        i0, i1 = first_at(s), first_at(s + L)
+        m = i1 - i0
+        if m < 8:
+            continue
+        env = np.exp(-3 * np.linspace(0, 1, m))
+        tt = np.arange(i0, i1) / SR
+        y = np.zeros(m)
+        for k in range(1, 4):
+            if f0 * k < SR / 2 - 500:
+                y += (0.6 ** k) * np.sin(2 * np.pi * f0 * k * tt)
+        x[i0:i1] += rng.uniform(0.2, 0.6) * env * y
+    return (x / max(1e-9, np.abs(x).max()) * 0.7).astype(np.float32)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -430,10 +493,12 @@ def phase_main_path(torch, rec: dict) -> dict:
     require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
             f"a kernel was not launched on the main path: {launches}")
     rec["_paths"]["config2"] = launches
+    ctx = dict(tracks=tracks, ht=ht, hashes=hashes, an=an, matcher=matcher,
+               queries=queries, qsel=[int(i) for i in qsel])
     return ({"fingerprint_audio_s_per_s": as_s, "match_q_per_s":
              n_q / t_match, "top1_self": top1, "jaccard_min": min(jac),
              "peak_mib": peak / 2**20, "breakdown_ms": breakdown},
-            tracks, ht, t_fp + t_store)
+            ctx, t_fp + t_store)
 
 
 def _jaccard(a: np.ndarray, b: np.ndarray):
@@ -620,6 +685,499 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
             "two_stage_audio_s_per_s": audio / t_two_stage}
 
 
+def _sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak(torch, dev) -> int:
+    """Reset the peak statistic; returns the bytes allocated now."""
+    if torch.device(dev).type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_mib(torch, dev, base: int = 0) -> float:
+    """Peak device memory since _reset_peak, above `base` bytes."""
+    if torch.device(dev).type != "cuda":
+        return 0.0
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+# benchmarks/baseline_configs.py's config 3 (that module imports JAX):
+# condition name -> _degrade kwargs, 3 s queries
+CONFIG3_CONDITIONS = [
+    ("clean", {}),
+    ("snr10", {"snr_db": 10}),
+    ("snr5", {"snr_db": 5}),
+    ("snr0", {"snr_db": 0}),
+    ("lowpass3k", {"lowpass_hz": 3000}),
+    ("speed+2%", {"speed": 1.02}),
+    ("speed-3%", {"speed": 0.97}),
+    ("speed+4%", {"speed": 1.04}),
+    ("snr5_lp3k_speed+2%", {"snr_db": 5, "lowpass_hz": 3000,
+                            "speed": 1.02}),
+]
+
+
+def _degrade(clip, rng, snr_db=None, speed=None, lowpass_hz=None):
+    """benchmarks/baseline_configs._degrade: speed change (time-scale and
+    pitch), a 6th-order lowpass, additive noise at an SNR."""
+    from scipy.signal import butter, resample_poly, sosfilt
+    x = clip.astype(np.float64)
+    if speed and speed != 1.0:
+        up, dn = max(1, round(1000 / speed)), 1000
+        x = resample_poly(x, up, dn)
+    if lowpass_hz:
+        sos = butter(6, lowpass_hz / (SR / 2), output="sos")
+        x = sosfilt(sos, x)
+    if snr_db is not None:
+        sig_pow = float(np.mean(x ** 2))
+        noise_pow = sig_pow / (10 ** (snr_db / 10))
+        x = x + np.sqrt(noise_pow) * rng.standard_normal(len(x))
+    return x.astype(np.float32)
+
+
+def _pr(results, truths):
+    """benchmarks/baseline_configs._pr: rank-0 precision and recall."""
+    tp = sum(1 for r, t in zip(results, truths) if len(r) and r[0][0] == t)
+    fp = sum(1 for r, t in zip(results, truths) if len(r) and r[0][0] != t)
+    fn = sum(1 for r in results if not len(r))
+    return tp / max(1, tp + fp), tp / max(1, tp + fp + fn)
+
+
+def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
+                  qdur=3.0, chunk=8) -> dict:
+    """BASELINE config 3 as benchmarks/baseline_configs.config3 runs it:
+    its own corpus (bench.synth_batch tracks, seeds 0..n-1) in a default
+    table, 3 s queries degraded 9 ways and fingerprinted by the
+    noisy-query analyzer, matched plain, and the speed conditions again
+    through the +/-4% sweep in chunks of 8 queries."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from audfprint_tpu.index.hash_table import HashTable
+    from audfprint_torch.match.matcher import Matcher, sweep_factors
+    from audfprint_torch.models import presets
+    from audfprint_torch.models.analyzer import Analyzer
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import spectro as SP
+
+    t0 = time.time()
+    # numpy's sin holds the interpreter lock at these sizes: processes
+    with ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        tracks = list(ex.map(harmonic_track, range(n_tracks),
+                             [int(dur * SR)] * n_tracks, chunksize=16))
+    t_make = time.time() - t0
+    t0 = time.time()
+    hashes = Analyzer(device=dev).samples_batch2hashes(tracks)
+    ht = HashTable()
+    for i, h in enumerate(hashes):
+        ht.store_vectorized(f"t{i}", h)
+    print(f"config 3: made {n_tracks} x {dur:g} s harmonic tracks in "
+          f"{t_make:.1f} s (host numpy, not timed); table of "
+          f"{sum(len(h) for h in hashes)} hashes built in "
+          f"{time.time() - t0:.2f} s")
+    del hashes
+    matcher = Matcher(device=dev)
+    an4 = presets.make_analyzer("noisy-query", device=dev)
+    rng = np.random.default_rng(2)
+    starts = [int(rng.integers(0, int((dur - qdur - 1) * SR)))
+              for _ in range(nq)]
+    clean = [tracks[i][starts[i]: starts[i] + int(qdur * SR)].copy()
+             for i in range(nq)]
+    del tracks
+    # warm-up outside the counted run: the 3 s bucket and the variants'
+    warm = an4.samples_batch2hashes(clean[:chunk])
+    matcher.match_samples_sweep(an4, ht, clean[:chunk], 4.0,
+                                base_hashes=warm)
+    _sync(torch, dev)
+    # ---- config 3 with the sweep, counted ----
+    _counts_zero(SP, CP)
+    curve = {}
+    for name, kw in CONFIG3_CONDITIONS:
+        queries = [_degrade(c, rng, **kw) for c in clean]
+        truths = list(range(nq))
+        t0 = time.time()
+        qh = an4.samples_batch2hashes(queries)
+        t_fp = time.time() - t0
+        t0 = time.time()
+        results = matcher.match_hashes_batch(ht, qh)
+        t_m = time.time() - t0
+        prec, recall = _pr(results, truths)
+        row = {"precision": prec, "recall": recall,
+               "q_per_s": nq / (t_fp + t_m)}
+        msg = (f"config 3 {name:>20}: P {prec:.3f} R {recall:.3f}, "
+               f"{nq / (t_fp + t_m):.1f} q/s (fingerprint {t_fp:.3f} s + "
+               f"match {t_m:.3f} s)")
+        if "speed" in name:
+            t0 = time.time()
+            best = []
+            for c in range(0, nq, chunk):
+                best.extend(matcher.match_samples_sweep(
+                    an4, ht, queries[c: c + chunk], 4.0,
+                    base_hashes=qh[c: c + chunk]))
+            t_s = time.time() - t0
+            sp, sr_ = _pr([rr for rr, _f, _n in best], truths)
+            wins = {}
+            for _rr, f, _n in best:
+                key = f"{round((f - 1) * 100):+d}%"
+                wins[key] = wins.get(key, 0) + 1
+            row.update(sweep_precision=sp, sweep_recall=sr_,
+                       sweep_q_per_s=nq / (t_fp + t_s),
+                       sweep_winners=wins)
+            msg += (f"; swept: P {sp:.3f} R {sr_:.3f}, "
+                    f"{nq / (t_fp + t_s):.1f} q/s (sweep {t_s:.3f} s), "
+                    f"winning corrections {wins}")
+        curve[name] = row
+        print(msg)
+    launches = _counts(SP, CP)
+    print(f"config 3: {1 + len(sweep_factors(4.0))} variants per swept "
+          f"query; launches {launches}")
+    for name in ("clean", "snr10", "snr5", "lowpass3k"):
+        require(curve[name]["recall"] >= 0.95,
+                f"config 3 {name}: recall {curve[name]['recall']} < 0.95")
+    for name, row in curve.items():
+        if "speed" in name:
+            require(row["sweep_recall"] >= row["recall"],
+                    f"config 3 {name}: the sweep lowered recall {row}")
+    for name in ("speed-3%", "speed+4%"):
+        require(curve[name]["sweep_recall"] > curve[name]["recall"],
+                f"config 3 {name}: the sweep did not recover it "
+                f"{curve[name]}")
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+            f"a kernel was not launched on the config 3 path: {launches}")
+    rec["_paths"]["config3_sweep"] = launches
+    return {"config3_curve": curve}
+
+
+def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
+                    win=10.0, hop=5.0, extra=()) -> dict:
+    """Broadcast monitoring over a long log through cli.do_match with
+    --windowed: every third segment is an excerpt of a DB track placed on
+    the log's frame grid, the rest is audio not in the DB.  `extra` adds
+    `match` flags (a lower --stream-above streams a shorter log)."""
+    from audfprint_tpu.utils.audio import audio_write_wav
+    from audfprint_tpu.utils.timing import Stages
+    from audfprint_torch import cli
+    from audfprint_torch.match.matcher import slice_hash_windows
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import spectro as SP
+
+    tracks, ht, matcher = ctx["tracks"], ctx["ht"], ctx["matcher"]
+    rng = np.random.default_rng(SEED + 6)
+    seg_n = int(seg_sec * SR)
+    tlen = len(tracks[0])
+    src = rng.permutation(len(tracks))[: (n_seg + 2) // 3]
+    x = np.empty(n_seg * seg_n, np.float32)
+    excerpts = {}                          # segment -> track id
+    t0 = time.time()
+    for k in range(n_seg):
+        o = k * seg_n
+        if k % 3 == 0:
+            j = int(src[k // 3])
+            # source start = log offset modulo the hop: the excerpt's
+            # frames coincide with the track's own frames
+            phase = o % 256
+            s0 = 256 * int(rng.integers(0, (tlen - seg_n - phase) // 256 + 1)) \
+                + phase
+            x[o: o + seg_n] = tracks[j][s0: s0 + seg_n]
+            excerpts[k] = j
+        else:
+            x[o: o + seg_n] = synth_track(rng, seg_sec)
+    wav = os.path.join(d, "broadcast.wav")
+    audio_write_wav(wav, x, SR)
+    del x
+    print(f"broadcast: wrote a {n_seg * seg_sec:g} s log ({len(excerpts)} "
+          f"excerpts) in {time.time() - t0:.1f} s (host numpy, not timed)")
+
+    args = cli.make_parser().parse_intermixed_args(
+        ["match", "--windowed", f"{win:g}", "--window-hop", f"{hop:g}",
+         *extra, wav])
+    an = cli.setup_analyzer(args, dev)
+    require(an._should_stream(wav), "the broadcast log does not stream")
+    base = _reset_peak(torch, dev)
+    t0 = time.time()
+    h = an.wavfile2hashes_streaming(wav)
+    _sync(torch, dev)
+    t_stream = time.time() - t0
+    peak_stream = _peak_mib(torch, dev, base)
+    dur = an.soundfiledur
+    wins = slice_hash_windows(h, dur, win, SR / 256.0, hop)
+    lines: list = []
+    # ---- the windowed CLI path, counted ----
+    _counts_zero(SP, CP)
+    base = _reset_peak(torch, dev)
+    t0 = time.time()
+    n_files, _tot = cli.do_match(ht, an, matcher, [wav], args, lines.append,
+                                 Stages())
+    _sync(torch, dev)
+    wall = time.time() - t0
+    peak_all = _peak_mib(torch, dev, base)
+    launches = _counts(SP, CP)
+
+    named = {}                             # window label -> rank-0 track
+    for ln in lines:
+        m = re.search(r" t=(\d+\.\d)s ", ln)
+        if m is None:
+            continue
+        hit = re.search(r" as track(\d+) at .* rank 0$", ln)
+        named[m.group(1)] = int(hit.group(1)) if hit else None
+    found, fp, filler = set(), 0, 0
+    for t0w, _sel, _wd in wins:
+        k = int(t0w // seg_sec)
+        if t0w + win > (k + 1) * seg_sec + 1e-9:
+            continue                       # spans a segment boundary
+        got = named.get(f"{t0w:.1f}")
+        if k in excerpts:
+            if got == excerpts[k]:
+                found.add(k)
+        else:
+            filler += 1
+            fp += got is not None
+    fp_share = fp / max(1, filler)
+    print(f"broadcast: {len(wins)} windows of {win:g} s (hop {hop:g} s) over "
+          f"{dur:.1f} s in {wall:.3f} s = {len(wins) / wall:.1f} windows/s "
+          f"(do_match: streamed fingerprint + one batched vote); "
+          f"{len(found)} of {len(excerpts)} excerpts named at rank 0 by a "
+          f"window inside them; {fp} of {filler} filler windows report a "
+          f"track ({fp_share:.4f}); streamed route alone {t_stream:.3f} s, "
+          f"device memory peak {peak_stream:.1f} MiB (whole do_match, vote "
+          f"included, {peak_all:.1f} MiB; both above the {base / 2**20:.1f} "
+          f"MiB already resident); launches {launches}")
+    require(n_files == 1 and len(named) == len(wins),
+            f"broadcast: {len(named)} window results for {len(wins)} windows")
+    require(len(found) == len(excerpts),
+            f"broadcast: excerpts not found {sorted(set(excerpts) - found)}")
+    require(fp_share <= 0.05, f"broadcast: {fp} of {filler} filler windows "
+                              "report a DB track")
+    require(launches["prune_fwd_carry"] > 0 and launches["hpf_scan"] > 0,
+            f"the broadcast log did not stream through K1f and K2: "
+            f"{launches}")
+    rec["_paths"]["broadcast_windowed"] = launches
+    return {"broadcast_windows": len(wins), "broadcast_wall_s": wall,
+            "broadcast_windows_per_s": len(wins) / wall,
+            "broadcast_found": len(found), "broadcast_filler_fp": fp_share,
+            "broadcast_stream_peak_mib": peak_stream,
+            "broadcast_do_match_peak_mib": peak_all}
+
+
+def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
+    """cli.do_listen fed through an os.pipe: interactive requests one at a
+    time (latency), then a backlog with a missing path (throughput,
+    batching); lines equal batch do_match's over the same list."""
+    import threading
+
+    from audfprint_tpu.utils.audio import audio_write_wav
+    from audfprint_tpu.utils.timing import Stages
+    from audfprint_torch import cli
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import spectro as SP
+
+    ht, matcher = ctx["ht"], ctx["matcher"]
+    paths = []
+    for i, q in enumerate(ctx["queries"][: n_inter + n_backlog]):
+        paths.append(os.path.join(d, f"listen{i:02d}.wav"))
+        audio_write_wav(paths[-1], q, SR)
+    inter, backlog = paths[:n_inter], paths[n_inter:]
+    missing = os.path.join(d, "missing.wav")
+    backlog = backlog[: len(backlog) // 2] + [missing] \
+        + backlog[len(backlog) // 2:]
+    args = cli.make_parser().parse_intermixed_args(["match", "--listen"])
+    an = cli.setup_analyzer(args, dev)
+    t0 = time.time()
+    n_warm = cli.do_warmup(ht, an, matcher, args, print)
+    _sync(torch, dev)
+    print(f"listen: warmup ran {n_warm} paths in {time.time() - t0:.2f} s")
+
+    cond = threading.Condition()
+    got: list = []                       # (perf_counter, line)
+
+    def report(msg):
+        with cond:
+            got.append((time.perf_counter(), msg))
+            cond.notify_all()
+
+    def n_results():
+        return sum(ln.startswith(("Matched", "NOMATCH")) for _, ln in got)
+
+    rfd, wfd = os.pipe()
+    reader, writer = os.fdopen(rfd, "r"), os.fdopen(wfd, "w")
+    calls: list = []
+    real = cli.do_match
+
+    def counting(*a, **kw):
+        calls.append(len(a[3]))
+        return real(*a, **kw)
+
+    lat: list = []
+    mark: dict = {}
+    errors: list = []
+
+    def feeder():
+        try:
+            for p in inter:
+                with cond:
+                    n0 = n_results()
+                t = time.perf_counter()
+                writer.write(p + "\n")
+                writer.flush()
+                with cond:
+                    if not cond.wait_for(lambda: n_results() > n0, 120):
+                        raise RuntimeError(f"no answer for {p}")
+                    lat.append(got[-1][0] - t)
+            mark["calls"] = len(calls)
+            mark["t"] = time.perf_counter()
+            writer.write("".join(p + "\n" for p in backlog))
+            writer.flush()
+        except Exception as e:             # reported by the gate below
+            errors.append(repr(e))
+        finally:
+            writer.close()
+
+    cli.do_match = counting
+    try:
+        # ---- the listen loop, counted ----
+        _counts_zero(SP, CP)
+        th = threading.Thread(target=feeder, daemon=True)
+        th.start()
+        n_served, _dur = cli.do_listen(ht, an, matcher, args, report,
+                                       Stages(), None, stream=reader)
+        _sync(torch, dev)
+        t_end = time.perf_counter()
+        th.join(timeout=60)
+    finally:
+        cli.do_match = real
+        reader.close()
+    launches = _counts(SP, CP)
+    require(not errors and not th.is_alive(), f"listen feeder: {errors}")
+    served = [ln for _, ln in got]
+    batch: list = []
+    an.fail_on_error = False
+    cli.do_match(ht, an, matcher, inter + backlog, args, batch.append,
+                 Stages())
+    an.fail_on_error = True
+
+    def results(ls):
+        return [ln for ln in ls if ln.startswith(("Matched", "NOMATCH"))]
+
+    backlog_calls = calls[mark["calls"]:]
+    n_ok = len(backlog) - 1
+    bq_s = n_ok / (t_end - mark["t"])
+    lat_ms = sorted(1e3 * t for t in lat)
+    p50 = lat_ms[len(lat_ms) // 2]
+    errs = [ln for ln in served if ln.startswith("Error reading")]
+    print(f"listen: {n_inter} interactive requests, latency p50 "
+          f"{p50:.2f} ms, max {lat_ms[-1]:.2f} ms (write path -> result "
+          f"line; decode + fused fingerprint and match + one sync each); "
+          f"backlog of {len(backlog)} paths ({n_ok} queries + 1 missing) "
+          f"served in {len(backlog_calls)} do_match calls {backlog_calls}, "
+          f"{bq_s:.1f} q/s; {n_served} served in all; launches {launches}")
+    require(results(served) == results(batch)
+            and len(results(served)) == len(paths),
+            "listen results differ from batch do_match over the same list")
+    for ln, p in zip(results(served), paths[:n_inter] + [
+            b for b in backlog if b != missing]):
+        require(f"Matched {p} " in ln or f"NOMATCH {p} " in ln,
+                f"listen line out of order: {ln!r} for {p}")
+    require(len(errs) == 1 and missing in errs[0],
+            f"the missing path was not reported once: {errs}")
+    require(len(backlog_calls) < n_ok,
+            f"the backlog took {len(backlog_calls)} do_match calls")
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+            f"a kernel was not launched on the listen path: {launches}")
+    rec["_paths"]["listen"] = launches
+    return {"listen_p50_ms": p50, "listen_max_ms": lat_ms[-1],
+            "listen_backlog_q_per_s": bq_s,
+            "listen_backlog_calls": len(backlog_calls)}
+
+
+def phase_wide(torch, rec, ctx, dev, hashbits=None) -> dict:
+    """A default-size wide table: phase 6's tracks stored on the device at
+    sparse ids past the packed 2^18 cap, against the host store, then the
+    queries through the fused path on it."""
+    from audfprint_tpu import params as P
+    from audfprint_tpu.index.hash_table import HashTable
+    from audfprint_torch.index import device_table as DT
+    from audfprint_torch.match.matcher import Matcher
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import spectro as SP
+
+    hashes, queries, qsel = ctx["hashes"], ctx["queries"], ctx["qsel"]
+    ids = [(1 << 18) + 769 * i for i in range(len(hashes))]
+    ht = HashTable(idbits=20, **({} if hashbits is None
+                                 else {"hashbits": hashbits}))
+    require(ht.wide and ids[-1] < 1 << 20, "the wide table is not wide")
+    ht.names = [None] * (ids[-1] + 1)
+    ht.hashesperid = np.zeros(len(ht.names), np.int64)
+    for i, tid in enumerate(ids):
+        ht.names[tid] = f"track{i}"
+    ht._invalidate_index()
+    t0 = time.time()
+    for i, h in enumerate(hashes):
+        ht.store_vectorized(f"track{i}", h)
+    t_host = time.time() - t0
+
+    cfg = DT.config_for(ht)
+    base = _reset_peak(torch, dev)
+    t0 = time.time()
+    table, counts = DT.empty_table(cfg, dev)
+    for c in range(0, len(hashes), 256):
+        rows = hashes[c: c + 256]
+        L = P.next_pow2(max(len(h) for h in rows), 256)
+        tt = np.zeros((len(rows), L), np.int32)
+        hh = np.zeros((len(rows), L), np.int32)
+        vv = np.zeros((len(rows), L), bool)
+        for b, h in enumerate(rows):
+            tt[b, : len(h)], hh[b, : len(h)], vv[b, : len(h)] = \
+                h[:, 0], h[:, 1], True
+        DT.store_batch(table, counts,
+                       *[torch.as_tensor(a, device=dev) for a in (
+                           tt, hh, vv, np.asarray(ids[c: c + 256], np.int32))],
+                       cfg)
+    _sync(torch, dev)
+    t_store = time.time() - t0
+    peak = _peak_mib(torch, dev, base)
+    tab_mib = table.numel() * table.element_size() / 2**20
+    same = (np.array_equal(table.cpu().numpy().view(np.uint64), ht.table)
+            and np.array_equal(counts.cpu().numpy(), ht.counts))
+    del table, counts
+    print(f"wide table {cfg.n_buckets} x {cfg.depth} int64 ({tab_mib:.1f} "
+          f"MiB): {len(hashes)} tracks at ids {ids[0]}..{ids[-1]} stored on "
+          f"the device in {t_store:.3f} s (device memory peak {peak:.1f} "
+          f"MiB above what was resident; host store {t_host:.3f} s); equal "
+          f"to the host table bit "
+          f"for bit: {same}")
+    require(same, "the device wide table differs from the host store's")
+
+    an = ctx["an"]
+    m = Matcher(device=dev)
+    m.match_samples_fused(an, ht, queries[:8])     # upload + warm shapes
+    _sync(torch, dev)
+    # ---- the fused path on the wide table, counted ----
+    _counts_zero(SP, CP)
+    t0 = time.time()
+    res, _nh = m.match_samples_fused(an, ht, queries)
+    _sync(torch, dev)
+    t_match = time.time() - t0
+    launches = _counts(SP, CP)
+    ok = [len(r) > 0 and int(r[0][0]) == ids[i] for r, i in zip(res, qsel)]
+    print(f"wide table match: {sum(ok)} of {len(ok)} queries at rank 0 with "
+          f"their sparse ids, {len(queries) / t_match:.2f} q/s (fused, "
+          f"warm); launches {launches}")
+    require(all(ok), "a query missed its sparse id on the wide table")
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+            f"a kernel was not launched on the wide path: {launches}")
+    rec["_paths"]["wide"] = launches
+    return {"wide_table_mib": tab_mib, "wide_store_s": t_store,
+            "wide_store_peak_mib": peak, "wide_match_q_per_s":
+            len(queries) / t_match}
+
+
 def golden_session(tmpdir: str, main) -> str:
     """tests/test_golden_cli.py's session through the port's CLI."""
     from audfprint_tpu.utils.audio import audio_write_wav
@@ -683,9 +1241,10 @@ def phase_cli() -> dict:
 
     rng = np.random.default_rng(SEED + 3)
     with tempfile.TemporaryDirectory() as d:
-        wavs = []
+        wavs, songs = [], []
         for i in range(3):
             x = synth_track(rng, 20.0)
+            songs.append(x)
             wavs.append(os.path.join(d, f"song{i}.wav"))
             audio_write_wav(wavs[-1], x, SR)
             if i == 1:
@@ -710,6 +1269,7 @@ def phase_cli() -> dict:
                    and np.array_equal(a.counts, b.counts)
                    and np.array_equal(a.hashesperid, b.hashesperid))
         print(f"CLI new --device-store database equals new's: {same_db}")
+        serving = phase_cli_serving(d, db, wavs, songs, query, q, rank0)
     with tempfile.TemporaryDirectory() as d:
         got = golden_session(d, lambda argv: main(argv, device="cuda"))
     with open(os.path.join(ROOT, "tests", "golden", "cli_session.txt")) as f:
@@ -722,7 +1282,94 @@ def phase_cli() -> dict:
     for i, a, b in diff[:10]:
         print(f"  line {i + 1}: golden {a!r}\n           card   {b!r}")
     return {"golden_lines_differing": ndiff, "cli_device_store_same_db":
-            same_db}
+            same_db, **serving}
+
+
+def phase_cli_serving(d, db, wavs, songs, query, q, rank0) -> dict:
+    """Phase 9's serving modes and wide tables, as subprocesses on the
+    3-song database."""
+    from audfprint_tpu.index.hash_table import HashTable
+    from audfprint_tpu.utils.audio import _resample, audio_write_wav
+
+    # wide tables, host store and device store
+    dbw, dbwd = os.path.join(d, "wide.pklz"), os.path.join(d, "wided.pklz")
+    _cli(["new", "-d", dbw, "--idbits", "20", *wavs])
+    _cli(["new", "-d", dbwd, "--idbits", "20", "--device-store", *wavs])
+    a, b = HashTable(dbw), HashTable(dbwd)
+    same_wide = (a.wide and a.table.dtype == np.uint64
+                 and np.array_equal(a.table, b.table)
+                 and np.array_equal(a.counts, b.counts)
+                 and np.array_equal(a.hashesperid, b.hashesperid))
+    out = _cli(["match", "-d", dbw, query])
+    print(f"CLI new --idbits 20 (wide) with and without --device-store: "
+          f"equal {same_wide}; match:\n" + out.rstrip())
+    require(same_wide, "the two wide databases differ")
+    require(re.search(rank0, out) is not None, "no rank-0 match on the wide "
+                                               "database")
+
+    # broadcast monitoring: song0 then song2 in one recording, the second
+    # on the recording's frame grid
+    o = 8 * SR
+    s0 = 256 * 20 + o % 256
+    rec = os.path.join(d, "two_songs.wav")
+    audio_write_wav(rec, np.concatenate([songs[0][:o],
+                                         songs[2][s0: s0 + o]]), SR)
+    out = _cli(["match", "-d", db, "--windowed", "4", "--window-hop", "2",
+                rec])
+    print("CLI match --windowed 4 --window-hop 2:\n" + out.rstrip())
+    hits = [(float(m.group(1)), m.group(2)) for m in re.finditer(
+        r" t=(\d+\.\d)s .* as \S+(song\d)\.wav at .* rank 0", out)]
+    require(any(t <= 4.0 and s == "song0" for t, s in hits)
+            and any(t >= 8.0 and s == "song2" for t, s in hits),
+            f"--windowed did not find both songs in their windows: {hits}")
+
+    # warmup, then a serving process with --speed-sweep on a +4% query
+    sped = os.path.join(d, "sped.wav")
+    audio_write_wav(sped, _resample(q, 104, 100), SR)
+    t0 = time.time()
+    out = _cli(["warmup", "-d", db, "--warm-durations", "5,10",
+                "--batchsize", "16"])
+    t_warm = time.time() - t0
+    print(f"CLI warmup ({t_warm:.1f} s wall):\n" + out.rstrip())
+    require("warmed 5 s bucket (batch sizes [1, 16])" in out,
+            "warmup did not report the 5 s bucket")
+    t0 = time.time()
+    out = _cli(["match", "-d", db, "--speed-sweep", "4", sped, query])
+    t_after = time.time() - t0
+    print(f"CLI match --speed-sweep 4 after warmup ({t_after:.1f} s "
+          "wall):\n" + out.rstrip())
+    require(re.search(r"Matched \S+sped\.wav .* as \S+song1\.wav .* rank 0 "
+                      r"\(speed \+4%\)", out) is not None,
+            "the +4% query's rank-0 line carries no (speed +4%)")
+    require(re.search(rank0, out) is not None,
+            "the plain query lost its rank-0 match under --speed-sweep")
+
+    # --profile with the diagnostics
+    prof = os.path.join(d, "prof")
+    diag = os.path.join(d, "diag.wav")
+    audio_write_wav(diag, q, SR)
+    out = _cli(["match", "-d", db, "--profile", prof, "-I", "--sonify",
+                diag])
+    print("CLI match --profile -I --sonify:\n" + out.rstrip())
+    traces = [f for f in os.listdir(prof) if f.endswith(".trace.json")]
+    require(len(traces) == 1, f"--profile wrote {os.listdir(prof)}")
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    kern = {k: sum(k in n for n in names)
+            for k in ("prune_fwd_bwd", "hpf_scan")}
+    print(f"--profile trace: {len(events)} events, {len(names)} kernel "
+          f"events; by name {kern}")
+    require(min(kern.values()) > 0,
+            f"the profile trace does not name the kernels: {kern}; kernel "
+            f"names seen: {sorted(set(names))[:12]}")
+    require(os.path.getsize(diag + ".sonify.wav") > 44,
+            "--sonify wrote no WAV")
+    require("illustrate_match: matplotlib not available; skipping" in out
+            or "illustrate_match: wrote" in out, "-I printed nothing")
+    return {"cli_wide_same_db": same_wide, "cli_warmup_wall_s": t_warm,
+            "cli_match_after_warmup_wall_s": t_after,
+            "profile_kernel_events": kern}
 
 
 def main() -> int:
@@ -764,11 +1411,16 @@ def main() -> int:
                     print("  ptxas:" + line.split("info    :")[-1].rstrip())
         phase_kernels(torch, rec)
         phase_stream_kernels(torch, rec, dev)
-        main_summary, tracks, ht, t_two_stage = phase_main_path(torch, rec)
+        main_summary, ctx, t_two_stage = phase_main_path(torch, rec)
         summary.update(main_summary)
-        summary.update(phase_device_store(torch, rec, tracks, ht,
-                                          t_two_stage, dev))
-        del tracks, ht
+        summary.update(phase_device_store(torch, rec, ctx["tracks"],
+                                          ctx["ht"], t_two_stage, dev))
+        summary.update(phase_config3(torch, rec, dev))
+        with tempfile.TemporaryDirectory() as d:
+            summary.update(phase_broadcast(torch, rec, ctx, dev, d))
+            summary.update(phase_listen(torch, rec, ctx, dev, d))
+        summary.update(phase_wide(torch, rec, ctx, dev))
+        del ctx
         with tempfile.TemporaryDirectory() as d:
             summary.update(phase_streaming(torch, rec, {"dir": d}, dev))
         summary.update(phase_cli())

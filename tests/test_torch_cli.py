@@ -1,9 +1,12 @@
 """audfprint_torch CLI on the CPU: the golden session byte for byte, the
-port running without JAX in a fresh process, the not-yet-ported flags
-refusing with a pointer to ROADMAP.md, and long WAVs streaming."""
+port running without JAX in a fresh process, every JAX CLI flag accepted
+(--ndev > 1 refusing with a pointer to ROADMAP.md), and long WAVs
+streaming."""
 
 import functools
+import io
 import os
+import re
 import subprocess
 import sys
 
@@ -72,24 +75,86 @@ def test_port_runs_without_jax(tmp_path):
     assert "b.wav at 0.5 s" in proc.stdout and "at rank 0" in proc.stdout
 
 
+@pytest.fixture(scope="module")
+def small_db(tmp_path_factory):
+    """Two 4 s songs in a -h 12 database, and a 3 s query of the second."""
+    d = tmp_path_factory.mktemp("flags")
+    rng = np.random.default_rng(12)
+    songs = [synth_audio(rng, dur_sec=4.0, n_tones=40) for _ in range(2)]
+    wavs = [str(d / f"s{i}.wav") for i in range(2)]
+    for w, x in zip(wavs, songs):
+        audio_write_wav(w, x, 11025)
+    q = str(d / "q.wav")
+    audio_write_wav(q, songs[1][256 * 10: 256 * 10 + 3 * 11025], 11025)
+    db = str(d / "db.pklz")
+    assert cli.main(["new", "-d", db, "-h", "12", "-o", str(d / "o.txt"),
+                     *wavs], device="cpu") == 0
+    return d, db, q
+
+
 @pytest.mark.parametrize("extra", [
     ["warmup"], ["new", "--device-store", "--ndev", "2"],
     ["match", "--ndev", "2"],
     ["match", "--listen"], ["match", "--windowed", "5"],
     ["match", "--speed-sweep", "3"], ["match", "-I"],
     ["new", "--profile", "trace"]])
-def test_unported_features_exit_nonzero(extra, tmp_path, capsys):
-    rc = cli.main([extra[0], "-d", str(tmp_path / "db.pklz"), *extra[1:]],
-                  device="cpu")
-    err = capsys.readouterr().err
-    assert rc == 2
-    assert "not yet ported" in err and "ROADMAP.md" in err
+def test_unported_features_exit_nonzero(extra, small_db, capsys,
+                                        monkeypatch):
+    """Of the JAX CLI's flags, only --ndev > 1 still refuses (status 2,
+    pointing at ROADMAP.md); warmup, --listen, --windowed, --speed-sweep,
+    -I and --profile, once refused here, now run through the port."""
+    d, db, q = small_db
+    if "--ndev" in extra:
+        rc = cli.main([extra[0], "-d", str(d / "nd.pklz"), *extra[1:]],
+                      device="cpu")
+        err = capsys.readouterr().err
+        assert rc == 2
+        assert "--ndev > 1 is not yet ported" in err and "ROADMAP.md" in err
+        return
+    files = [q]
+    if extra == ["warmup"]:
+        extra, files = ["warmup", "--warm-durations", "3",
+                        "--batchsize", "2"], []
+    elif "--listen" in extra:
+        monkeypatch.setattr("sys.stdin", io.StringIO(q + "\n"))
+        files = []
+    elif "--profile" in extra:
+        extra = ["new", "--profile", str(d / "trace")]
+        db = str(d / "prof.pklz")
+        files = [str(d / "s0.wav")]
+    argv = [extra[0], "-d", db, "-h", "12", *extra[1:], *files]
+    if "-I" in extra:
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+    capsys.readouterr()
+    assert cli.main(argv, device="cpu") == 0
+    out = capsys.readouterr().out
+    if extra[0] == "warmup":
+        assert "warmed 3 s bucket (batch sizes [1, 2])" in out
+    elif extra[0] == "new":
+        assert f"profiler trace written to {d / 'trace'}" in out
+        assert os.listdir(d / "trace")
+    else:
+        assert re.search(r"Matched \S+q\.wav( t=0\.0s)? .* as \S+s1\.wav",
+                         out), out
+        if "-I" in extra:
+            assert "matplotlib not available; skipping" in out
 
 
 def test_wide_table_exits_nonzero(tmp_path, capsys):
-    rc = cli.main(["new", "-d", str(tmp_path / "db.pklz"), "-h", "10",
-                   "--idbits", "24"], device="cpu")
-    assert rc == 2 and "not yet ported" in capsys.readouterr().err
+    """`new --idbits 24` (past 32 - maxtimebits) saves a wide database
+    with uint64 entries, once refused here."""
+    from audfprint_tpu.index.hash_table import HashTable
+
+    wav = str(tmp_path / "a.wav")
+    audio_write_wav(wav, synth_audio(np.random.default_rng(2), dur_sec=3.0),
+                    11025)
+    db = str(tmp_path / "db.pklz")
+    assert cli.main(["new", "-d", db, "-h", "10", "--idbits", "24", wav],
+                    device="cpu") == 0
+    assert "Saved fprints for 1 files" in capsys.readouterr().out
+    ht = HashTable(db)
+    assert ht.wide and ht.idbits == 24 and ht.table.dtype == np.uint64
+    assert ht.counts.sum() > 0
 
 
 def test_long_wav_refuses_streaming(tmp_path):

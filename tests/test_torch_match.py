@@ -234,6 +234,24 @@ def test_fused_path_equals_two_stage():
 
 
 def test_wide_table_not_ported():
+    """A wide table (--idbits 24, once refused) uploads as one int64 plane
+    whose gather decodes the host's ids and dts."""
     ht = HashTable(hashbits=10, depth=4, maxtime=1024, idbits=24)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DT.table_to_device(ht, "cpu")
+    ht.names = [None] * ((1 << 23) + 1)
+    ht.hashesperid = np.zeros(len(ht.names), np.int64)
+    ht.names[1 << 23] = "big"
+    ht._invalidate_index()
+    ht.store_vectorized("big", [(700, 5), (20, 9)])
+    ht.store_vectorized("small", [(3, 5)])
+    table, counts, cfg = DT.table_to_device(ht, "cpu")
+    assert cfg.wide and table.dtype == torch.int64
+    qt = np.array([[100, 0]], np.int32)
+    qh = np.array([[5, 9]], np.int32)
+    ids, dts, hv = DT.get_hits_local(table, counts, _t(qt), _t(qh),
+                                     _t(np.ones((1, 2), bool)), cfg)
+    got = [(int(i), int(t), q) for q in range(2) for i, t, v in
+           zip(ids[0, q], dts[0, q], hv[0, q]) if v]
+    want = [(int(r[0]), int(r[1]), int(r[2] == 9))
+            for r in ht.get_hits(np.stack([qt[0], qh[0]], axis=1))]
+    assert got == want == [((1 << 23), 600, 0), ((1 << 23) + 1, -97, 0),
+                           ((1 << 23), 20, 1)]
