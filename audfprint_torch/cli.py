@@ -28,11 +28,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from audfprint_tpu import params as P
-from audfprint_tpu.index.hash_table import HashTable
-from audfprint_tpu.utils import audio as audio_io
-from audfprint_tpu.utils import formats
-from audfprint_tpu.utils.timing import Stages
+from audfprint_torch import params as P
+from audfprint_torch.index.hash_table import HashTable
+from audfprint_torch.utils import audio as audio_io
+from audfprint_torch.utils import formats
+from audfprint_torch.utils.timing import Stages
 from audfprint_torch.match.matcher import Matcher, slice_hash_windows
 from audfprint_torch.models.analyzer import Analyzer
 from audfprint_torch.models.ingest import DeviceIngest

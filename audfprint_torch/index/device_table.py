@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from audfprint_tpu import params as P
+from audfprint_torch import params as P
 
 
 class TableConfig(NamedTuple):
@@ -122,7 +122,7 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
     """murmur3 fmix32 on int64 tensors holding uint32 values; equals
-    audfprint_tpu.utils.prng.mix32."""
+    audfprint_torch.utils.prng.mix32 (the host store's)."""
     x = x.to(torch.int64) & _M32
     x = x ^ (x >> 16)
     x = _mul32(x, _C1)

@@ -19,8 +19,8 @@ import weakref
 import numpy as np
 import torch
 
-from audfprint_tpu import params as P
-from audfprint_tpu.utils import audio as audio_io
+from audfprint_torch import params as P
+from audfprint_torch.utils import audio as audio_io
 from audfprint_torch.index import device_table as DT
 from audfprint_torch.match import voting
 from audfprint_torch.ops import pipeline as pipe
@@ -160,10 +160,26 @@ class Matcher:
         return min(max(1 << 28, total // 3), 8 << 30)
 
     def _sorted_bytes_per_row(self, tcfg, Q: int) -> int:
-        """Footprint estimate of the sorted core: ~16 hit-domain int64
-        arrays per row, 2.5x for exact-count's 3H-wide merged sort."""
-        per = 16 * Q * tcfg.depth * 8
-        return per * 5 // 2 if self.exact_count else per
+        """Footprint of the sorted core per query row, in int64 hit-domain
+        arrays (Q * depth * 8 bytes each).  The arrays live at its peak,
+        counted on the CPU by tests/test_torch_vote_memory.py, are at most
+        12 for the approximate count, 17 with exact counting, and 4 more
+        with the time range; each budget leaves 4 to spare for a sort's
+        scratch on the card."""
+        units = (16 + (5 if self.exact_count else 0)
+                 + (4 if self.find_time_range else 0))
+        return units * Q * tcfg.depth * 8
+
+    def sub_batch(self, B: int, tcfg, Q: int) -> int:
+        """Rows per voting call for B query rows of Q hashes: the memory
+        envelope only ever splits the batch (power-of-two sub-batches),
+        never the query."""
+        cap = max(1, self._budget_bytes()
+                  // max(1, self._sorted_bytes_per_row(tcfg, Q)))
+        bsub = _next_pow2(B)
+        if bsub > cap:
+            bsub = 1 << max(0, cap.bit_length() - 1)
+        return bsub
 
     def _mcfg(self, qt_cap: int, ncap: int) -> voting.MatchConfig:
         return voting.MatchConfig(
@@ -189,13 +205,8 @@ class Matcher:
         maxt = max([1] + [int(h[:, 0].max()) + 1 for h in hash_lists
                           if len(h)])
         qt_cap = _next_pow2(maxt, _QT_FLOOR)
-        # the memory envelope only ever splits the batch (power-of-two
-        # sub-batches), never the query
+        bsub = self.sub_batch(B, tcfg, Q)
         per_row = self._sorted_bytes_per_row(tcfg, Q)
-        cap = max(1, self._budget_bytes() // max(1, per_row))
-        bsub = _next_pow2(B)
-        if bsub > cap:
-            bsub = 1 << max(0, cap.bit_length() - 1)
         if bsub < B and self.verbose:
             print(f"Note: using the sorted voting core, "
                   f"splitting {B} queries into sub-batches of {bsub} "
@@ -439,7 +450,7 @@ class Matcher:
         except ImportError:
             print("illustrate_match: matplotlib not available; skipping")
             return None
-        from audfprint_tpu.oracle import analyze as oa
+        from audfprint_torch.oracle import analyze as oa
 
         if hpf is None:
             hpf = bool(self.illustrate_hpf)
@@ -479,7 +490,7 @@ class Matcher:
         """Resynthesize the query's landmarks as sine-pair chirps, the
         matched ones louder (the JAX package's sonify_match).  Writes
         <filename>.sonify.wav."""
-        from audfprint_tpu.oracle import analyze as oa
+        from audfprint_torch.oracle import analyze as oa
 
         sr = analyzer.target_sr
         d = analyzer.read_audio(filename)

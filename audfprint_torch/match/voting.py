@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from audfprint_tpu import params as P
+from audfprint_torch import params as P
 from audfprint_torch.index import device_table as DT
 
 _I32MAX = 2**31 - 1
@@ -185,39 +185,51 @@ def match_core_sorted(table: torch.Tensor, counts: torch.Tensor,
                       tcfg: DT.TableConfig, mcfg: MatchConfig):
     """Single-device voting on the hit domain: gather the hits, then the
     compacted-RLE vote (_vote_rle).  O(B * H log H) with H = Q * depth,
-    independent of maxtime, query length and track count."""
+    independent of maxtime, query length and track count.
+
+    Memory: only the packed (id, bin) key of each hit, and its query frame
+    for the time range, stay referenced here while the vote runs; every
+    other hit-domain array is dropped (`del`) as soon as it is dead, so the
+    peak is what Matcher._sorted_bytes_per_row budgets."""
     B, Q = qhashes.shape
     N = mcfg.n_ids_cap
     nbins = tcfg.maxtime + mcfg.qt_cap
+    if N + 1 >= 2**31 or nbins >= 2**29:
+        raise ValueError("n_ids_cap or the dt-bin domain is out of range")
     ids3, dts3, hv3 = DT.get_hits_local(
         table, counts, qtimes, qhashes, qvalid, tcfg, 0)
     H = Q * tcfg.depth
-    id_f = ids3.reshape(B, H).long()
-    v_f = hv3.reshape(B, H)
-    dtbin_f = torch.clamp(dts3.reshape(B, H).long() + mcfg.qt_cap,
-                          0, nbins - 1)
-    idk = torch.where(v_f, torch.clamp(id_f, max=N - 1), N)
+    idk = torch.where(hv3.reshape(B, H),
+                      torch.clamp(ids3.reshape(B, H).long(), max=N - 1), N)
+    del ids3, hv3
+    dtbin = torch.clamp(dts3.reshape(B, H).long() + mcfg.qt_cap, 0, nbins - 1)
+    del dts3
+    key = _pack2(idk, dtbin)
+    del idk, dtbin
     qt_f = None
     if mcfg.find_time_range:
         qt_f = torch.clamp(
             qtimes.long()[:, :, None].expand(B, Q, tcfg.depth).reshape(B, H),
             0, mcfg.qt_cap - 1)
-    return _vote_rle(idk, dtbin_f, qt_f, hashesperid, Q, tcfg, mcfg)
+    return _vote_rle(key, qt_f, hashesperid, Q, tcfg, mcfg)
 
 
-def _vote_rle(idk: torch.Tensor, dtbin_f: torch.Tensor,
-              qt_f: torch.Tensor | None, hashesperid: torch.Tensor,
-              qrows: int, tcfg: DT.TableConfig, mcfg: MatchConfig):
+def _vote_rle(key: torch.Tensor, qt_f: torch.Tensor | None,
+              hashesperid: torch.Tensor, qrows: int, tcfg: DT.TableConfig,
+              mcfg: MatchConfig):
     """The compacted-RLE vote on flat hit arrays.
 
-    idk:     (B, H) hit track ids, invalid slots = n_ids_cap (sort last)
-    dtbin_f: (B, H) hit dt bins (dt + qt_cap, clipped to [0, nbins))
+    key:     (B, H) packed hit keys _pack2(id, dt bin): track ids with the
+             invalid slots at n_ids_cap (sort last), dt bins = dt + qt_cap
+             clipped to [0, nbins)
     qt_f:    (B, H) hit query frame (clipped to qt_cap), iff find_time_range
     qrows:   query-hash rows; each row's depth hits are contiguous
 
     Results are invariant to the order of hits within a (row, id, bin)
-    group, so no sort here needs a tie rule beyond its keys."""
-    B, H = idk.shape
+    group, so no sort here needs a tie rule beyond its keys.  Each
+    hit-domain intermediate is deleted when it is dead (see
+    match_core_sorted)."""
+    B, H = key.shape
     SD = mcfg.search_depth
     W = mcfg.window
     Mc = max(1, mcfg.modes_cap) if mcfg.exact_count else 1
@@ -225,15 +237,15 @@ def _vote_rle(idk: torch.Tensor, dtbin_f: torch.Tensor,
     nbins = tcfg.maxtime + mcfg.qt_cap
     if qrows * tcfg.depth != H:
         raise ValueError("hit arrays must hold qrows * depth columns")
-    if N + 1 >= 2**31 or nbins >= 2**29:
-        raise ValueError("n_ids_cap or the dt-bin domain is out of range")
-    dev = idk.device
+    dev = key.device
     iota_h = torch.arange(H, device=dev).expand(B, H)
 
     # F1: all hits sorted by (id, bin)
-    f1, perm = torch.sort(_pack2(idk, dtbin_f), dim=1, stable=True)
+    f1, perm = torch.sort(key, dim=1, stable=True)
     s_id, s_db = f1 >> 32, f1 & 0xFFFFFFFF
+    del f1
     s_qt = qt_f.gather(1, perm) if mcfg.find_time_range else None
+    del perm
 
     # candidate selection on the id-run starts: (wc desc, id desc), the
     # upstream np.argsort(wcounts)[::-1] rule.  wc > 0, so its f32 bits
@@ -241,70 +253,86 @@ def _vote_rle(idk: torch.Tensor, dtbin_f: torch.Tensor,
     idruns = _Runs.of(s_id)
     c_h = idruns.end - idruns.start                 # raw count per hit
     first_ok = (iota_h == idruns.start) & (s_id < N)
+    del idruns
     hpi = torch.clamp(hashesperid, min=1).to(torch.float32)
     wc = c_h.to(torch.float32) / hpi[torch.clamp(s_id, max=N - 1)]
-    wbits = wc.view(torch.int32).long()
-    ckey = _pack2(torch.where(first_ok, _F32_INF_BITS - wbits,
-                              _F32_INF_BITS + 1), N - s_id)
+    ckey = _pack2(torch.where(first_ok, _F32_INF_BITS - wc.view(torch.int32)
+                              .long(), _F32_INF_BITS + 1), N - s_id)
+    del first_ok, wc
     k1s, pos_s = torch.sort(ckey, dim=1, stable=True)
+    del ckey
     S = min(SD, H)
     cand_valid = _pad_cols((k1s[:, :S] >> 32) <= _F32_INF_BITS, SD - S,
                            False)
+    del k1s
     cand_ids = torch.where(
         cand_valid, _pad_cols(s_id.gather(1, pos_s[:, :S]), SD - S, 0),
         N - 1)
     cand_start = torch.where(cand_valid, _pad_cols(pos_s[:, :S], SD - S, 0),
                              0)
+    del pos_s
     cand_raw = torch.where(cand_valid, c_h.gather(1, cand_start), 0)
+    del c_h
     cand_last = torch.clamp(cand_start + cand_raw - 1, min=0)
 
     # compact the (id, bin) runs to the row front (distinct keys)
     run_first = torch.cat(
-        [torch.ones_like(first_ok[:, :1]),
+        [torch.ones_like(s_id[:, :1], dtype=torch.bool),
          (s_id[:, 1:] != s_id[:, :-1]) | (s_db[:, 1:] != s_db[:, :-1])],
         dim=1)
     rruns = _Runs.from_first(run_first)
     c_run = rruns.end - rruns.start
-    run_idx = torch.cumsum(run_first.long(), dim=1) - 1
+    del rruns
+    cend_c = (torch.cumsum(run_first.long(), dim=1) - 1).gather(1, cand_last)
     keep_r = run_first & (s_id < N)
+    del run_first
     corder = torch.argsort(torch.where(keep_r, iota_h, H + iota_h), dim=1)
     cid_c = torch.where(keep_r, s_id, N + 1).gather(1, corder)
     db_c = torch.where(keep_r, s_db, -(1 << 28)).gather(1, corder)
     cnt_c = torch.where(keep_r, c_run, 0).gather(1, corder)
+    del keep_r, c_run, corder
+    if not mcfg.find_time_range:
+        del s_id, s_db
     val_c = cid_c < N
 
     # id-segment structure on the compacted row
     seg_first = _first_of(cid_c)
     seg_last = torch.cat([seg_first[:, 1:], torch.ones_like(seg_first[:, :1])],
                          dim=1)
-    (dtmin_c,) = _seg_spread(seg_first, db_c)
-    cend_c = run_idx.gather(1, cand_last)
 
     offsets = range(-2 * W, W + 1) if not mcfg.exact_count \
         else range(-W, W + 1)
-    nbr = {o: (_shifted(cid_c, o, -1), _shifted(db_c, o, -(1 << 28)),
-               _shifted(cnt_c, o, 0)) for o in offsets if o != 0}
+
+    def neighbours():
+        """Each nonzero offset's shifted (id, bin, count) rows, made one
+        offset at a time so that only one set is live."""
+        for o in offsets:
+            if o:
+                yield (_shifted(cid_c, o, -1), _shifted(db_c, o, -(1 << 28)),
+                       _shifted(cnt_c, o, 0))
 
     # segmented lexicographic max of (score, then min pos): one cummax over
     # (segment rank | score code | reversed pos); the segment rank in the
     # high bits restarts the max at every segment.  Valid scores are >= -1
     # and <= max(H, nbins); valid positions lie in [0, nbins).
-    seg_rank = torch.cumsum(seg_first.long(), dim=1) - 1
     pbits = nbins.bit_length()
     sbits = (max(H, nbins) + 2).bit_length()
     if max(1, (H - 1).bit_length()) + sbits + pbits > 63:
         raise ValueError("segmented max key does not fit 63 bits")
-    seg_hi = seg_rank << (sbits + pbits)
+    seg_hi = (torch.cumsum(seg_first.long(), dim=1) - 1) << (sbits + pbits)
     pmax = 1 << pbits
 
     def seg_best(score, pos, valid):
         key = (seg_hi | (torch.where(valid, score + 2, 0) << pbits)
                | torch.where(valid, pmax - 1 - pos, 0))
         run = torch.cummax(key, dim=1).values
+        del key
         sc = (run >> pbits) & ((1 << sbits) - 1)
+        best_s = torch.where(sc == 0, -(1 << 30), sc - 2)
+        del sc
         pc = run & (pmax - 1)
-        return (torch.where(sc == 0, -(1 << 30), sc - 2),
-                torch.where(pc == 0, _I32MAX, pmax - 1 - pc))
+        del run
+        return best_s, torch.where(pc == 0, _I32MAX, pmax - 1 - pc)
 
     def seg_final(*vals):
         """Broadcast each segment's last value over the segment."""
@@ -317,50 +345,67 @@ def _vote_rle(idk: torch.Tensor, dtbin_f: torch.Tensor,
     if not mcfg.exact_count:
         # approx: the smear at every event point p = max(dtmin, d - W);
         # winner per id = (max count, then smallest p)
+        (dtmin_c,) = _seg_spread(seg_first, db_c)
         p_c = torch.maximum(dtmin_c, db_c - W)
-        s_c = cnt_c
-        for cid_o, db_o, cn_o in nbr.values():
+        del dtmin_c
+        s_c = cnt_c.clone()
+        for cid_o, db_o, cn_o in neighbours():
             m = (cid_o == cid_c) & (db_o >= p_c - W) & (db_o <= p_c + W)
-            s_c = s_c + torch.where(m, cn_o, 0)
+            s_c += torch.where(m, cn_o, 0)        # in place: s_c is ours
+            del m, cid_o, db_o, cn_o
         bs, bp = seg_best(s_c, p_c, val_c)
+        del s_c, p_c
         filt = at_cands(bs, -1)[:, :, None]
         mode_bin = at_cands(bp, 0)[:, :, None]
+        del bs, bp
         mode_ok = torch.ones_like(filt, dtype=torch.bool)
     else:
         # a run is a mode candidate iff count >= every same-id neighbour
         # run count within +/-W bins
         nb_max = torch.zeros_like(cnt_c)
-        c_cov = cnt_c
-        for cid_o, db_o, cn_o in nbr.values():
+        c_cov = cnt_c.clone()
+        for cid_o, db_o, cn_o in neighbours():
             m = (cid_o == cid_c) & ((db_o - db_c).abs() <= W)
-            nb_max = torch.maximum(nb_max, torch.where(m, cn_o, 0))
-            c_cov = c_cov + torch.where(m, cn_o, 0)
+            cm = torch.where(m, cn_o, 0)
+            del m
+            torch.maximum(nb_max, cm, out=nb_max)  # in place: ours
+            c_cov += cm
+            del cm, cid_o, db_o, cn_o
         ismode = (val_c & (cnt_c >= max(1, mcfg.threshcount))
                   & (cnt_c >= nb_max))
+        del nb_max
 
         # D = #consecutive same-(query row, id) hit pairs whose windows
         # both cover a run's bin, via one merged event/run sort: +1 at
         # (id, dhi - W), -1 at (id, dlo + W + 1), runs at odd bins so they
         # never tie an event; the prefix sum read at each run is D there
-        s3 = torch.sort(_pack2(idk, dtbin_f).reshape(B, qrows, tcfg.depth),
-                        dim=-1).values
+        s3 = torch.sort(key.reshape(B, qrows, tcfg.depth), dim=-1).values
         i3s, d3s = s3 >> 32, s3 & 0xFFFFFFFF
+        del s3
         pair_ok = ((i3s[..., :-1] == i3s[..., 1:]) & (i3s[..., 1:] < N)
                    & (d3s[..., 1:] - d3s[..., :-1] <= 2 * W))
         NP = qrows * (tcfg.depth - 1)
-        pid = torch.where(pair_ok, i3s[..., 1:], N).reshape(B, NP)
-        dlo = d3s[..., :-1].reshape(B, NP)
-        dhi = d3s[..., 1:].reshape(B, NP)
-        wplus = pair_ok.reshape(B, NP).long()
-        ids_m = torch.cat([pid, pid, cid_c], dim=1)
-        bins_m = torch.cat([(dhi - W) * 2, (dlo + W + 1) * 2, db_c * 2 + 1],
-                           dim=1)
-        w_m = torch.cat([wplus, -wplus, torch.zeros_like(cid_c)], dim=1)
-        mperm = torch.argsort(_pack2(ids_m, bins_m + (1 << 30)), dim=1,
-                              stable=True)
-        csum = torch.cumsum(w_m.gather(1, mperm), dim=1)
-        d_cov = torch.empty_like(csum).scatter_(1, mperm, csum)[:, 2 * NP:]
-        u_c = c_cov - d_cov
+        pid = torch.where(pair_ok, i3s[..., 1:], N).reshape(B, NP) << 32
+        del i3s
+        off = 1 << 30
+        key_m = torch.cat(
+            [pid | ((d3s[..., 1:].reshape(B, NP) - W) * 2 + off),
+             pid | ((d3s[..., :-1].reshape(B, NP) + W + 1) * 2 + off),
+             _pack2(cid_c, db_c * 2 + 1 + off)], dim=1)
+        del pid, d3s
+        # the weights in int8: +1 / -1 / 0, summed in int64 below
+        wplus = pair_ok.reshape(B, NP).to(torch.int8)
+        del pair_ok
+        w_m = torch.cat([wplus, -wplus, torch.zeros_like(cid_c,
+                                                        dtype=torch.int8)],
+                        dim=1)
+        del wplus
+        mperm = torch.argsort(key_m, dim=1, stable=True)
+        del key_m
+        csum = torch.cumsum(w_m.gather(1, mperm), dim=1, dtype=torch.long)
+        del w_m
+        u_c = c_cov - torch.empty_like(csum).scatter_(1, mperm, csum)[:, 2 * NP:]
+        del csum, mperm, c_cov
 
         mode_bins, mode_oks, mode_filts = [], [], []
         if mcfg.sort_by_time:
@@ -370,14 +415,19 @@ def _vote_rle(idk: torch.Tensor, dtbin_f: torch.Tensor,
             for _s in range(Mc):
                 tscore = torch.where(avail, nbins - 1 - db_c, -1)
                 bs, bp = seg_best(tscore, db_c, avail)
+                del tscore
                 (bp_full,) = seg_final(bp)
                 chosen = avail & (db_c == bp_full)
+                del bp_full
                 us, _up = seg_best(torch.where(chosen, u_c, -1), db_c,
                                    chosen)
+                del _up
                 mode_bins.append(at_cands(bp, 0))
                 mode_oks.append(at_cands(bs, -1) >= 0)
                 mode_filts.append(at_cands(us, -1))
+                del bs, bp, us
                 avail = avail & ~chosen
+                del chosen
         else:
             score = torch.where(ismode, u_c, -1)
             for _s in range(Mc):
@@ -387,12 +437,16 @@ def _vote_rle(idk: torch.Tensor, dtbin_f: torch.Tensor,
                 mode_oks.append(bv > 0)
                 mode_filts.append(bv)
                 bs_full, bp_full = seg_final(bs, bp)
+                del bs, bp
                 chosen = ((score >= 0) & (score == bs_full)
                           & (db_c == bp_full))
+                del bs_full, bp_full
                 score = torch.where(chosen, -1, score)
+                del chosen
         mode_bin = torch.stack(mode_bins, dim=-1)
         mode_ok = torch.stack(mode_oks, dim=-1)
         filt = torch.stack(mode_filts, dim=-1)
+    del cid_c, db_c, cnt_c, val_c, seg_first, seg_last, seg_hi
 
     # optional time range per (candidate, mode slot): one (id, qtime)
     # re-sort of the F1 row per slot puts each id segment's aligned qtimes
@@ -411,21 +465,26 @@ def _vote_rle(idk: torch.Tensor, dtbin_f: torch.Tensor,
                                  device=dev)
             mb_seed.scatter_(1, seed_col, mode_bin[:, :, s])
             (mb_h,) = _seg_spread(id_first_f1, mb_seed[:, :H])
+            del mb_seed
             aligned = s_valid & ((s_db - mb_h).abs() <= W)
+            del mb_h
             q_sorted = torch.sort(
                 _pack2(s_id, torch.where(aligned, s_qt, 1 << 29)),
                 dim=1).values & 0xFFFFFFFF
             ca = torch.cumsum(aligned.long(), dim=1)
+            del aligned
             hi = ca.gather(1, cand_last)
             lo = torch.where(cand_start > 0,
                              ca.gather(1, torch.clamp(cand_start - 1, min=0)),
                              0)
+            del ca
             nq = torch.where(cand_valid, hi - lo, 0)
             nqf = nq.to(torch.float32)
             k0 = (tq * nqf).long()
             k1 = torch.clamp((tq1 * nqf).long() - 1, min=0)
             gmin = q_sorted.gather(1, torch.clamp(cand_start + k0, max=H - 1))
             gmax = q_sorted.gather(1, torch.clamp(cand_start + k1, max=H - 1))
+            del q_sorted
             min_ts.append(torch.where(nq > 0, gmin, 0))
             max_ts.append(torch.where(nq > 0, gmax, 0))
         min_t = torch.stack(min_ts, dim=-1)

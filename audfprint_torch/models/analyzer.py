@@ -15,10 +15,10 @@ import os
 import numpy as np
 import torch
 
-from audfprint_tpu import params as P
-from audfprint_tpu.ops.config import PipelineConfig
-from audfprint_tpu.utils import audio as audio_io
-from audfprint_tpu.utils import formats
+from audfprint_torch import params as P
+from audfprint_torch.ops.config import PipelineConfig
+from audfprint_torch.utils import audio as audio_io
+from audfprint_torch.utils import formats
 from audfprint_torch.models import streaming as STM
 from audfprint_torch.ops import pipeline as pipe
 from audfprint_torch.utils.device import resolve_device
@@ -100,7 +100,7 @@ class Analyzer:
         if ext == formats.PRECOMPEXT:
             hashes = formats.hashes_load(filename)
         elif ext == formats.PRECOMPPKEXT:
-            from audfprint_tpu.oracle import analyze as oa
+            from audfprint_torch.oracle import analyze as oa
 
             params = P.AnalyzerParams(
                 density=self.density, n_fft=self.n_fft, n_hop=self.n_hop,
@@ -293,7 +293,7 @@ class Analyzer:
         is input order."""
         import glob as _glob
 
-        from audfprint_tpu.index.hash_table import HashTable
+        from audfprint_torch.index.hash_table import HashTable
         if ht is None:
             ht = HashTable()
         names = sorted(_glob.glob(pattern))

@@ -18,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audfprint_tpu import params as P
-from audfprint_tpu.ops.config import PipelineConfig
+from audfprint_torch import params as P
+from audfprint_torch.ops.config import PipelineConfig
 from audfprint_torch.index import device_table as DT
 from audfprint_torch.models.analyzer import _bucket_len
 from audfprint_torch.ops import pipeline as pipe

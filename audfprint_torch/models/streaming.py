@@ -37,10 +37,10 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from audfprint_tpu import params as P
-from audfprint_tpu.oracle import analyze as oa
-from audfprint_tpu.ops.config import PipelineConfig
-from audfprint_tpu.utils import audio as audio_io
+from audfprint_torch import params as P
+from audfprint_torch.oracle import analyze as oa
+from audfprint_torch.ops.config import PipelineConfig
+from audfprint_torch.utils import audio as audio_io
 from audfprint_torch.ops import peaks as PK
 from audfprint_torch.ops import streaming as ST
 

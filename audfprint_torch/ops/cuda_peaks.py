@@ -24,13 +24,64 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audfprint_tpu.ops.config import PipelineConfig
+from audfprint_torch.ops.config import PipelineConfig
 from audfprint_torch.ops import peaks as PK
 from audfprint_torch.ops import spectro as SP
 
 _NEG = -3.0e38     # "not a candidate" in m0: below every envelope
-MAX_BINS = 1024    # K1: one thread per bin
-MAX_K = 16
+MAX_BINS = 1024    # K1/K1f: one warp per row, at most 32 bins per lane
+MAX_K = 16         # a frame's slots are lanes 0..k-1
+
+# The kernels' shared memory (csrc/prune.cu Layout): a ring of kStages
+# stages of about kStageBytes of m0, one mbarrier per stage, the 2F - 1
+# template and, for K1 when they fit with two rows per SM, the T * k
+# (pos, val) lists.
+_STAGES = 4
+_STAGE_BYTES = 8192
+_MAX_SMEM = 232448            # a block's shared memory on sm_90
+_LIST_SMEM_MAX = 113 * 1024
+
+
+def _smem_bytes(T: int, F: int, k: int, lists: bool) -> int:
+    sf = max(1, _STAGE_BYTES // (F * 4))
+    tmpl = _STAGES * sf * F * 4 + _STAGES * 8
+    return (((tmpl + (2 * F - 1) * 4 + 15) & ~15)
+            + (T * k * 8 if lists else 0))
+
+
+def _kernel_inputs(what: str, m0: torch.Tensor, envs: list,
+                   gvec: torch.Tensor, T: int, k: int, lists: bool):
+    """The kernels' f32 operands with the bins padded to a multiple of 4
+    (16-byte bulk copies): m0 with _NEG, which is never a candidate, the
+    envelopes with 0, and the template re-centred on the padded width, so
+    every real bin sees the same bump values.  Checks the padding and the
+    shared memory the launch needs; returns (m0, envs, gvec, Fp)."""
+    F = m0.shape[-1]
+    Fp = -(-F // 4) * 4
+    if Fp % 4 or not 0 < Fp <= MAX_BINS:
+        raise ValueError(f"{what}: padded bins {Fp} must be a multiple of 4 "
+                         f"and at most {MAX_BINS}")
+    need = _smem_bytes(T, Fp, k, False)
+    if lists and _smem_bytes(T, Fp, k, True) <= _LIST_SMEM_MAX:
+        need = _smem_bytes(T, Fp, k, True)
+    if need > _MAX_SMEM:
+        raise ValueError(f"{what}: needs {need} bytes of shared memory, more "
+                         f"than the {_MAX_SMEM} a block has on sm_90")
+    f32 = torch.float32
+    dev = m0.device
+    m0c = m0.to(f32)
+    g = gvec.to(device=dev, dtype=f32)
+    envs = [e.to(device=dev, dtype=f32) for e in envs]
+    if Fp != F:
+        m0c = torch.nn.functional.pad(m0c, (0, Fp - F), value=_NEG)
+        envs = [torch.nn.functional.pad(e, (0, Fp - F)) for e in envs]
+        g2 = g.new_zeros(2 * Fp - 1)
+        g2[Fp - F: Fp + F - 1] = g
+        g = g2
+    m0c = m0c.contiguous()
+    if m0c.data_ptr() % 16:           # bulk copies read 16-byte rows
+        m0c = m0c.clone()
+    return m0c, [e.contiguous() for e in envs], g.contiguous(), Fp
 
 # kernel launches made by prune_fwd_bwd and prune_fwd_carry (read by the
 # on-card smoke run)
@@ -73,25 +124,24 @@ def prune_fwd_bwd(m0: torch.Tensor, n_frames: torch.Tensor,
     if gvec.shape != (2 * F - 1,) or env0f.shape != (B, F) \
             or env0b.shape != (B, F) or n_frames.shape != (B,):
         raise ValueError("prune_fwd_bwd: inconsistent shapes")
+    kept = torch.empty((B, T, k), dtype=torch.int32, device=m0.device)
+    if m0.numel() == 0:
+        return kept
     from audfprint_torch.ops import _build
 
-    f32 = torch.float32
-    m0c = m0.to(f32).contiguous()
+    m0c, (e0f, e0b), g, Fp = _kernel_inputs(
+        "prune_fwd_bwd", m0, [env0f, env0b], gvec, T, k, lists=True)
     nf = n_frames.to(device=m0.device, dtype=torch.int32).contiguous()
-    e0f = env0f.to(f32).contiguous()
-    e0b = env0b.to(f32).contiguous()
-    g = gvec.to(device=m0.device, dtype=f32).contiguous()
-    kept = torch.empty((B, T, k), dtype=torch.int32, device=m0.device)
-    if m0c.numel() == 0:
-        return kept
+    # the forward lists' global scratch, used when they do not fit in
+    # shared memory (csrc/prune.cu)
     lpos = torch.empty((B, T, k), dtype=torch.int32, device=m0.device)
-    lval = torch.empty((B, T, k), dtype=f32, device=m0.device)
+    lval = torch.empty((B, T, k), dtype=torch.float32, device=m0.device)
     lib = _build.load()
     with torch.cuda.device(m0.device):
         err = lib.prune_fwd_bwd(
             m0c.data_ptr(), nf.data_ptr(), e0f.data_ptr(), e0b.data_ptr(),
             g.data_ptr(), lpos.data_ptr(), lval.data_ptr(), kept.data_ptr(),
-            B, T, F, k, float(a_dec), torch.cuda.current_stream().cuda_stream)
+            B, T, Fp, k, float(a_dec), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "prune_fwd_bwd")
     launches["prune_fwd_bwd"] += 1
     return kept
@@ -125,26 +175,25 @@ def prune_fwd_carry(m0: torch.Tensor, env_in: torch.Tensor,
                          f"0 < k <= {MAX_K}, got F={F}, k={k}")
     if gvec.shape != (2 * F - 1,) or env_in.shape != (B, F):
         raise ValueError("prune_fwd_carry: inconsistent shapes")
+    lpos = torch.empty((B, T, k), dtype=torch.int32, device=m0.device)
+    lval = torch.empty((B, T, k), dtype=torch.float32, device=m0.device)
+    if B == 0:
+        return lpos, lval, torch.empty((B, F), dtype=torch.float32,
+                                       device=m0.device)
     from audfprint_torch.ops import _build
 
-    f32 = torch.float32
-    m0c = m0.to(f32).contiguous()
-    e_in = env_in.to(device=m0.device, dtype=f32).contiguous()
-    g = gvec.to(device=m0.device, dtype=f32).contiguous()
-    lpos = torch.empty((B, T, k), dtype=torch.int32, device=m0.device)
-    lval = torch.empty((B, T, k), dtype=f32, device=m0.device)
-    env_out = torch.empty((B, F), dtype=f32, device=m0.device)
-    if B == 0:
-        return lpos, lval, env_out
+    m0c, (e_in,), g, Fp = _kernel_inputs(
+        "prune_fwd_carry", m0, [env_in], gvec, T, k, lists=False)
+    env_out = torch.empty((B, Fp), dtype=torch.float32, device=m0.device)
     lib = _build.load()
     with torch.cuda.device(m0.device):
         err = lib.prune_fwd_carry(
             m0c.data_ptr(), e_in.data_ptr(), g.data_ptr(), lpos.data_ptr(),
-            lval.data_ptr(), env_out.data_ptr(), B, T, F, k, float(a_dec),
+            lval.data_ptr(), env_out.data_ptr(), B, T, Fp, k, float(a_dec),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "prune_fwd_carry")
     launches["prune_fwd_carry"] += 1
-    return lpos, lval, env_out
+    return lpos, lval, env_out[:, :F]
 
 
 def candidate_map(y: torch.Tensor, n_frames: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from audfprint_tpu import params as P
-from audfprint_tpu.ops.config import PipelineConfig
+from audfprint_torch import params as P
+from audfprint_torch.ops.config import PipelineConfig
 
 
 def pack_hashes(f1: torch.Tensor, f2: torch.Tensor,

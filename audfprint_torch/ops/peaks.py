@@ -22,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audfprint_tpu import params as P
-from audfprint_tpu.ops.config import PipelineConfig
+from audfprint_torch import params as P
+from audfprint_torch.ops.config import PipelineConfig
 
 _NEG = float("-inf")
 

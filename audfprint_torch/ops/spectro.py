@@ -18,8 +18,8 @@ import functools
 import numpy as np
 import torch
 
-from audfprint_tpu import params as P
-from audfprint_tpu.ops.config import PipelineConfig
+from audfprint_torch import params as P
+from audfprint_torch.ops.config import PipelineConfig
 
 # kernel launches made by hpf (read by the on-card smoke run)
 launches = {"hpf_scan": 0}

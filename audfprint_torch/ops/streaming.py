@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audfprint_tpu.ops.config import PipelineConfig
+from audfprint_torch.ops.config import PipelineConfig
 from audfprint_torch.ops import cuda_peaks as CP
 from audfprint_torch.ops import landmarks as L
 from audfprint_torch.ops import peaks as PK

@@ -12,21 +12,30 @@ Phases (any failure exits non-zero before the result line):
      with ragged n_frames (including 0 and 1) and on np.round-quantised
      tie-heavy ones, and at 512 bins with 8 peaks per frame, bit for bit
      on the kept lists; a few rows against the numpy oracle's
-     find_peaks_mask
+     find_peaks_mask; then K1_CASES at the wrapper's level (dense frames
+     with more than k candidates each, F = 200 and F = 258, B = 1, lists
+     in global memory, F = 1024 with k = 16, F = 20)
   5. K1f (prune_fwd_carry) against its plain version at the streamed
      chunk shapes 1 x 8192 x 256 and 4 x 2048 x 256, random and
      tie-heavy, envelope in from the head and from a carry; K1f and K2
-     over 3 carried chunks against one pass, bit for bit
+     over 3 carried chunks against one pass, bit for bit; then K1F_CASES
+     (dense, F = 200, F = 258, a chunk ending inside a ring stage, one
+     shorter than a stage, an empty one, F = 1024) and chunks of 1001, 777
+     and 2414 frames against one pass at F = 256 and 258.  Each kernel's
+     time beside its bound (bytes over 3.35 TB/s or float32 operations
+     over 67 TFLOP/s, whichever is longer)
   6. the main path at BASELINE config 2 ("1k-track DB of 30s clips; clean
      exact-segment queries"): 1,000 synthetic music-like 30 s tracks from
      a fixed seed -> Analyzer(device="cuda") -> host HashTable (2^20 x 100)
      -> device table -> 64 clean 10 s hop-aligned queries through the fused
      Matcher path; top-1 self >= 0.95, hash Jaccard > 0.9 against the
-     oracle for 4 tracks, and both kernels launched on this path
+     oracle for 4 tracks, and both kernels launched on this path; K1
+     timed on the candidate map of one (256 x 30 s) batch of the corpus
   7. the fused device store (models/ingest.DeviceIngest) over the same
      1,000 tracks: table, counts and hashesperid equal the host store's
      bit for bit; ingest rate against fingerprint + host store
-  8. streaming: a seeded 7,200 s WAV through Analyzer's streamed route
+  8. streaming: K1f timed on an 8,192-frame chunk of a seeded 7,200 s
+     WAV, then the WAV through Analyzer's streamed route
      (K1f and K2 launched, time, device memory peak), equal at 8,192- and
      2,048-frame chunks, Jaccard > 0.9 against the in-memory path; then
      `new` on it and two songs as a subprocess (the long file must stream)
@@ -56,7 +65,8 @@ Phases (any failure exits non-zero before the result line):
      rest fresh audio; `match --windowed 10 --window-hop 5` through
      cli.do_match on phase 6's table (the file streams: K1f and K2); every
      excerpt named at rank 0 by a window inside it, <= 5% of the windows
-     inside filler reporting a track
+     inside filler reporting a track, and do_match's device peak above
+     what was resident within the vote's budget (Matcher._budget_bytes)
  12. the `match --listen` loop (cli.do_listen over an os.pipe) on phase
      6's queries: 16 interactive requests (latency), then a backlog of 48
      with one missing path; lines equal batch do_match's, in order, the
@@ -190,10 +200,139 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, nops: float) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take for a
+    function that moves nbytes (each input read once, each output written
+    once) and does nops float32 operations."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = nops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k1_bound(B: int, T: int, F: int, k: int, rounds: int) -> tuple:
+    """K1's bound on these inputs: m0, n_frames, both envelopes and the
+    template read, kept written; per frame and bin a compare, a max and a
+    decay each way, and per argmax round or kept peak a product and a max
+    over the F bins (`rounds` counts both passes' rounds in this run)."""
+    nbytes = 4 * (B * T * F + B + 2 * B * F + 2 * F - 1 + B * T * k)
+    return bound(nbytes, 5 * B * T * F + 2 * F * rounds)
+
+
+def k1f_bound(B: int, T: int, F: int, k: int, rounds: int) -> tuple:
+    """K1f's bound: m0, env_in and the template read, the (pos, val) lists
+    and env_out written; 3 operations per frame and bin, 2 per round and
+    bin."""
+    nbytes = 4 * (B * T * F + 2 * B * F + 2 * F - 1 + 2 * B * T * k)
+    return bound(nbytes, 3 * B * T * F + 2 * F * rounds)
+
+
+def _seeded_prune_case(torch, rng, dev, b: int, t: int, F: int,
+                       dense: bool):
+    """Wrapper-level K1/K1f inputs from a seed: m0, an envelope and the
+    2F - 1 template.  Random: a third of the bins hold N(1, 2) values, the
+    rest _NEG, under a U(0, 3) envelope.  Dense: every bin is a candidate
+    in every frame (frame t's values (t + 1) * 8 + {0..3} exceed every
+    earlier envelope, a zero envelope at t = 0), with ties in each frame."""
+    from audfprint_torch import params as P
+    from audfprint_torch.ops import cuda_peaks as CP
+
+    if dense:
+        m0 = (np.arange(1, t + 1, dtype=np.float32)[None, :, None] * 8.0
+              + rng.integers(0, 4, (b, t, F)).astype(np.float32))
+        env = np.zeros((b, F), np.float32)
+    else:
+        m0 = np.where(rng.random((b, t, F)) < 0.3,
+                      rng.standard_normal((b, t, F)) * 2.0 + 1.0, CP._NEG)
+        env = rng.uniform(0.0, 3.0, (b, F))
+    g = P.gaussian_template(P.F_SD, F - 1)
+    return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                 for a in (m0, env, g))
+
+
+# wrapper-level cases beyond the main path's shapes: (name, B, T, F, k,
+# dense).  F = 200 is not a multiple of 32, F = 258 not one of 4 (the
+# wrapper pads it); 3000 frames put K1's lists in global memory; F = 1024
+# with k = 16 is the widest a lane holds (32 bins); T = 8191 ends inside a
+# ring stage, T = 5 is less than one stage
+K1_CASES = [("dense", 8, 300, 256, 5, True), ("F=200", 16, 400, 200, 5, False),
+            ("F=258", 16, 400, 258, 5, False),
+            ("B=1 listen", 1, 431, 256, 5, False),
+            ("lists in global memory", 4, 3000, 256, 5, False),
+            ("F=1024 k=16", 4, 200, 1024, 16, False),
+            ("F=20 k=3", 3, 64, 20, 3, False)]
+K1F_CASES = [("dense", 2, 1000, 256, 5, True),
+             ("F=200", 2, 700, 200, 5, False),
+             ("F=258", 2, 700, 258, 5, False),
+             ("ragged ring", 1, 8191, 256, 5, False),
+             ("T < one stage", 3, 5, 256, 5, False),
+             ("empty chunk", 2, 0, 256, 5, False),
+             ("F=1024 k=16", 2, 300, 1024, 16, False)]
+
+
+def check_k1_cases(torch, dev, rng, a_dec: float) -> None:
+    """K1 against its plain version, bit for bit, on K1_CASES."""
+    from audfprint_torch.ops import cuda_peaks as CP
+
+    for name, b, t, F, k, dense in K1_CASES:
+        m0, env, g = _seeded_prune_case(torch, rng, dev, b, t, F, dense)
+        nf_np = rng.integers(0, t + 1, b).astype(np.int32)
+        nf_np[:3] = [t, 0, 1][:b]
+        nf = torch.from_numpy(nf_np).to(dev)
+        env_b = torch.from_numpy(
+            rng.uniform(0.0, 3.0, (b, F)).astype(np.float32)).to(dev)
+        if dense:
+            env_b.zero_()
+        kept = CP.prune_fwd_bwd(m0, nf, env, env_b, g, a_dec, k)
+        plain = CP.prune_fwd_bwd_plain(m0, nf, env, env_b, g, a_dec, k)
+        torch.cuda.synchronize()
+        ndiff = int((kept != plain).sum().item())
+        require(ndiff == 0, f"K1 differs from its plain version, case "
+                            f"{name}: {ndiff} entries")
+        print(f"K1 prune_fwd_bwd case {name} ({b},{t},{F}, k={k}): bit-exact "
+              f"vs plain ({int((kept >= 0).sum())} kept)")
+
+
+def check_k1f_cases(torch, dev, rng, a_dec: float) -> None:
+    """K1f against its plain version, bit for bit, on K1F_CASES, and three
+    carried chunks of uneven lengths against one pass at F = 256 and 258."""
+    from audfprint_torch.ops import cuda_peaks as CP
+
+    for name, b, t, F, k, dense in K1F_CASES:
+        m0, env, g = _seeded_prune_case(torch, rng, dev, b, t, F, dense)
+        got = CP.prune_fwd_carry(m0, env, g, a_dec, k)
+        want = CP.prune_fwd_carry_plain(m0, env, g, a_dec, k)
+        torch.cuda.synchronize()
+        require(all(torch.equal(u, v) for u, v in zip(got, want)),
+                f"K1f differs from its plain version, case {name}")
+        print(f"K1f prune_fwd_carry case {name} ({b},{t},{F}, k={k}): "
+              f"bit-exact vs plain ({int((got[0] >= 0).sum())} peaks)")
+    for F in (256, 258):
+        m0, env, g = _seeded_prune_case(torch, rng, dev, 2, 4192, F, False)
+        whole = CP.prune_fwd_carry(m0, env, g, a_dec, 5)
+        lp, lv = [], []
+        for c0, c1 in ((0, 1001), (1001, 1778), (1778, 4192)):
+            p_, v_, env = CP.prune_fwd_carry(m0[:, c0:c1], env, g, a_dec, 5)
+            lp.append(p_)
+            lv.append(v_)
+        require(torch.equal(torch.cat(lp, 1), whole[0])
+                and torch.equal(torch.cat(lv, 1), whole[1])
+                and torch.equal(env, whole[2]),
+                f"K1f over chunks of 1001, 777 and 2414 frames differs from "
+                f"one pass at F = {F}")
+        print(f"K1f (2,4192,{F}) in chunks of 1001, 777 and 2414 frames "
+              "equals one pass bit for bit")
+
+
 def phase_kernels(torch, rec: dict) -> None:
-    from audfprint_tpu import params as P
-    from audfprint_tpu.oracle import analyze as oa
-    from audfprint_tpu.ops.config import PipelineConfig
+    from audfprint_torch import params as P
+    from audfprint_torch.oracle import analyze as oa
+    from audfprint_torch.ops.config import PipelineConfig
     from audfprint_torch.ops import cuda_peaks as CP
     from audfprint_torch.ops import spectro as SP
 
@@ -214,7 +353,9 @@ def phase_kernels(torch, rec: dict) -> None:
     k2_plain = cuda_ms(lambda: SP.hpf_plain(x, cfg), 2)
     print(f"K2 hpf_scan ({B},{T},{F}): bit-exact, kernel {k2_ms:.4f} ms, "
           f"plain {k2_plain:.2f} ms")
-    rec["hpf_scan"] = dict(max_abs_err=err, ms=k2_ms, plain_ms=k2_plain)
+    bms, bby = bound(8 * B * T * F, 3 * B * T * F)
+    rec["hpf_scan"] = dict(max_abs_err=err, ms=k2_ms, plain_ms=k2_plain,
+                           bound_ms=bms, bound_by=bby, library_ms=None)
 
     # ---- K1 ----
     worst = 0
@@ -270,10 +411,32 @@ def phase_kernels(torch, rec: dict) -> None:
                 m0, nf, e0f, e0b, gvec, cfg.a_dec, cfg.maxpksperframe), 5)
             k1_plain = cuda_ms(lambda: CP.prune_fwd_bwd_plain(
                 m0, nf, e0f, e0b, gvec, cfg.a_dec, cfg.maxpksperframe), 1)
+            k1_stats = k1_rounds(torch, m0, e0f, gvec, kept, cfg)
+            k1_b = k1_bound(b, t, Fc, ccfg.maxpksperframe, k1_stats[0])
             print(f"K1 prune_fwd_bwd (256,1535,256): kernel {k1_ms:.3f} ms, "
-                  f"plain {k1_plain:.1f} ms")
+                  f"plain {k1_plain:.1f} ms, bound {k1_b[0]:.4f} ms "
+                  f"({k1_b[1]}); {k1_stats[1]:.3f} argmax rounds and "
+                  f"{k1_stats[2]:.2f} locmax bins per frame")
+    check_k1_cases(torch, dev, rng, cfg.a_dec)
     rec["prune_fwd_bwd"] = dict(max_abs_err=float(worst), ms=k1_ms,
-                                plain_ms=k1_plain)
+                                plain_ms=k1_plain, bound_ms=k1_b[0],
+                                bound_by=k1_b[1], library_ms=None,
+                                rounds_per_frame=k1_stats[1])
+
+
+def k1_rounds(torch, m0, env0f, gvec, kept, cfg) -> tuple:
+    """The data-dependent work of K1 on these inputs: (argmax rounds of
+    the forward pass plus peaks kept by the backward pass, forward rounds
+    per frame, locmax bins per frame).  The forward lists come from K1f,
+    which runs the same forward loop."""
+    from audfprint_torch.ops import cuda_peaks as CP
+
+    lp = CP.prune_fwd_carry(m0, env0f, gvec, cfg.a_dec,
+                            cfg.maxpksperframe)[0]
+    fwd = int((lp >= 0).sum().item())
+    frames = m0.shape[0] * m0.shape[1]
+    return (fwd + int((kept >= 0).sum().item()), fwd / frames,
+            float((m0 > -1e38).sum().item()) / frames)
 
 
 def _ridged(rng, b: int, t: int, F: int, quant: bool) -> np.ndarray:
@@ -292,7 +455,7 @@ def phase_stream_kernels(torch, rec: dict, dev, shapes=((1, 8192), (4, 2048)),
                          reps: int = 5) -> None:
     """K1f against its plain version and the carried chunks against one
     pass, for K1f and K2, at the streamed chunk shapes."""
-    from audfprint_tpu.ops.config import PipelineConfig
+    from audfprint_torch.ops.config import PipelineConfig
     from audfprint_torch.ops import cuda_peaks as CP
     from audfprint_torch.ops import peaks as PK
     from audfprint_torch.ops import spectro as SP
@@ -360,24 +523,89 @@ def phase_stream_kernels(torch, rec: dict, dev, shapes=((1, 8192), (4, 2048)),
     print(f"carries ({b},{t},{F}) in 3 chunks: K2 and K1f equal one pass "
           "bit for bit")
 
+    check_k1f_cases(torch, dev, rng, a)
+
+    # the chain's two costs: a frame with no candidate (m0 all _NEG) and
+    # one with k argmax rounds (every bin a candidate)
+    m_empty = torch.full_like(m0, CP._NEG)
+    m_dense, env_d, _g = _seeded_prune_case(torch, rng, dev, b, t, F, True)
+    empty_ms = cuda_ms(
+        lambda: CP.prune_fwd_carry(m_empty, env0, gvec, a, k), reps)
+    dense_ms = cuda_ms(
+        lambda: CP.prune_fwd_carry(m_dense, env_d, gvec, a, k), reps)
+    print(f"K1f ({b},{t},{F}) with no candidate: {empty_ms:.4f} ms "
+          f"({empty_ms / t * 1e3:.4f} us a frame); with {k} rounds in every "
+          f"frame: {dense_ms:.4f} ms ({(dense_ms - empty_ms) / (t * k) * 1e3:.4f}"
+          f" us a round)")
     k1f_ms = cuda_ms(lambda: CP.prune_fwd_carry(m0, env0, gvec, a, k), reps)
     k1f_plain = cuda_ms(
         lambda: CP.prune_fwd_carry_plain(m0, env0, gvec, a, k), 1)
+    fwd = int((whole[0] >= 0).sum().item())
+    k1f_b = k1f_bound(b, t, F, k, fwd)
     c0_ = (torch.zeros((b, F), device=dev), torch.zeros((b, F), device=dev))
     k2c_ms = cuda_ms(lambda: SP.hpf(white, cfg, c0_), reps)
     k2c_plain = cuda_ms(lambda: SP.hpf_plain(white, cfg, c0_), 1)
+    k2c_b = bound(4 * (2 * b * t * F + 4 * b * F), 3 * b * t * F)
     print(f"K1f ({b},{t},{F}): kernel {k1f_ms:.3f} ms, plain "
-          f"{k1f_plain:.1f} ms; K2 with a carry: kernel {k2c_ms:.4f} ms, "
-          f"plain {k2c_plain:.1f} ms")
+          f"{k1f_plain:.1f} ms, bound {k1f_b[0]:.5f} ms ({k1f_b[1]}), "
+          f"{fwd / (b * t):.3f} argmax rounds per frame; K2 with a carry: "
+          f"kernel {k2c_ms:.4f} ms, plain {k2c_plain:.1f} ms, bound "
+          f"{k2c_b[0]:.5f} ms ({k2c_b[1]})")
     rec["prune_fwd_carry"] = dict(max_abs_err=worst, ms=k1f_ms,
-                                  plain_ms=k1f_plain)
+                                  plain_ms=k1f_plain, bound_ms=k1f_b[0],
+                                  bound_by=k1f_b[1], library_ms=None,
+                                  rounds_per_frame=fwd / (b * t),
+                                  empty_ms=empty_ms, dense_ms=dense_ms)
     rec.setdefault("hpf_scan", {}).update(carry_ms=k2c_ms,
-                                          carry_plain_ms=k2c_plain)
+                                          carry_plain_ms=k2c_plain,
+                                          carry_bound_ms=k2c_b[0])
+
+
+def prune_on_real(torch, rec: dict, audio: np.ndarray, lens: np.ndarray,
+                  carry: bool) -> None:
+    """K1 (carry=False) or K1f (carry=True) timed on the candidate map of
+    real audio, with the data-dependent work it did: the (256, 30 s) batch
+    of phase 6's corpus for K1, one 8192-frame chunk of phase 8's WAV for
+    K1f."""
+    from audfprint_torch.ops.config import PipelineConfig
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import peaks as PK
+    from audfprint_torch.ops import pipeline as pipe
+    from audfprint_torch.ops import spectro as SP
+
+    cfg = PipelineConfig()
+    k, a = cfg.maxpksperframe, cfg.a_dec
+    ln = torch.as_tensor(lens, device="cuda")
+    nf = pipe.frame_count_device(ln, cfg)
+    white = SP.whitened_logmag(torch.as_tensor(audio, device="cuda"), nf, cfg)
+    y, m0, e0f, e0b, g = CP.prune_inputs(white, nf, cfg)
+    B, T, F = m0.shape
+    if carry:
+        env = PK.head_envelope(y, nf, CP._bump_table(g, F))
+        lp = CP.prune_fwd_carry(m0, env, g, a, k)[0]
+        ms = cuda_ms(lambda: CP.prune_fwd_carry(m0, env, g, a, k), 5)
+        rounds = int((lp >= 0).sum().item())
+        per = rounds / (B * T)
+        bms, bby = k1f_bound(B, T, F, k, rounds)
+        name = "prune_fwd_carry"
+    else:
+        kept = CP.prune_fwd_bwd(m0, nf, e0f, e0b, g, a, k)
+        ms = cuda_ms(lambda: CP.prune_fwd_bwd(m0, nf, e0f, e0b, g, a, k), 5)
+        rounds, per, _lm = k1_rounds(torch, m0, e0f, g, kept, cfg)
+        bms, bby = k1_bound(B, T, F, k, rounds)
+        name = "prune_fwd_bwd"
+    locmax = float((m0 > -1e38).sum().item()) / (B * T)
+    print(f"{name} on real audio ({B},{T},{F}): kernel {ms:.4f} ms, bound "
+          f"{bms:.5f} ms ({bby}); {per:.3f} argmax rounds and {locmax:.2f} "
+          f"locmax bins per frame")
+    rec[name].update(real_shape=[B, T, F], real_ms=ms, real_bound_ms=bms,
+                     real_rounds_per_frame=per,
+                     real_locmax_per_frame=locmax)
 
 
 def stage_breakdown(torch, batch: np.ndarray, lens: np.ndarray) -> dict:
     """Device ms of each fingerprint stage for one (256, 30 s) batch."""
-    from audfprint_tpu.ops.config import PipelineConfig
+    from audfprint_torch.ops.config import PipelineConfig
     from audfprint_torch.ops import cuda_peaks as CP
     from audfprint_torch.ops import landmarks as L
     from audfprint_torch.ops import pipeline as pipe
@@ -404,8 +632,8 @@ def stage_breakdown(torch, batch: np.ndarray, lens: np.ndarray) -> dict:
 
 
 def phase_main_path(torch, rec: dict) -> dict:
-    from audfprint_tpu.index.hash_table import HashTable
-    from audfprint_tpu.oracle import analyze as oa
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.oracle import analyze as oa
     from audfprint_torch.match.matcher import Matcher
     from audfprint_torch.models.analyzer import Analyzer
     from audfprint_torch.ops import cuda_peaks as CP
@@ -431,6 +659,7 @@ def phase_main_path(torch, rec: dict) -> dict:
     breakdown = stage_breakdown(torch, batch, lens)
     print("fingerprint stages, device ms per (256 x 30 s) batch: "
           + json.dumps({k: round(v, 3) for k, v in breakdown.items()}))
+    prune_on_real(torch, rec, batch, lens, carry=False)
 
     # ---- the main path, counted ----
     _counts_zero(SP, CP)
@@ -534,7 +763,7 @@ def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
     """A seeded long WAV through the streamed route: in-process (counted,
     timed, device memory), at two chunk sizes, against the in-memory path,
     then through the CLI as subprocesses with rank-0 matches of excerpts."""
-    from audfprint_tpu.utils.audio import audio_write_wav
+    from audfprint_torch.utils.audio import audio_write_wav
     from audfprint_torch.models.analyzer import Analyzer
     from audfprint_torch.ops import cuda_peaks as CP
     from audfprint_torch.ops import spectro as SP
@@ -555,6 +784,9 @@ def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
         queries.append(os.path.join(d, f"excerpt{j}.wav"))
         audio_write_wav(queries[-1], x[s0: s0 + 10 * SR], SR)
         starts.append(s0 // 256)
+    n = 8191 * 256 + 512                         # one 8192-frame chunk
+    prune_on_real(torch, rec, x[None, len(x) // 2: len(x) // 2 + n],
+                  np.array([n]), carry=True)
     del x
     print(f"streaming: wrote a {long_sec:g} s WAV "
           f"({os.path.getsize(long_wav) / 1e6:.1f} MB) in "
@@ -642,7 +874,7 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
                        t_two_stage: float, dev, chunk: int = 256) -> dict:
     """The fused device store over config 2's tracks: bit-identical to the
     host store, and its ingest rate against fingerprint + host store."""
-    from audfprint_tpu.index.hash_table import HashTable
+    from audfprint_torch.index.hash_table import HashTable
     from audfprint_torch.models.analyzer import Analyzer
     from audfprint_torch.models.ingest import DeviceIngest
     from audfprint_torch.ops import cuda_peaks as CP
@@ -758,7 +990,7 @@ def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    from audfprint_tpu.index.hash_table import HashTable
+    from audfprint_torch.index.hash_table import HashTable
     from audfprint_torch.match.matcher import Matcher, sweep_factors
     from audfprint_torch.models import presets
     from audfprint_torch.models.analyzer import Analyzer
@@ -861,8 +1093,9 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
     --windowed: every third segment is an excerpt of a DB track placed on
     the log's frame grid, the rest is audio not in the DB.  `extra` adds
     `match` flags (a lower --stream-above streams a shorter log)."""
-    from audfprint_tpu.utils.audio import audio_write_wav
-    from audfprint_tpu.utils.timing import Stages
+    from audfprint_torch import params as P
+    from audfprint_torch.utils.audio import audio_write_wav
+    from audfprint_torch.utils.timing import Stages
     from audfprint_torch import cli
     from audfprint_torch.match.matcher import slice_hash_windows
     from audfprint_torch.ops import cuda_peaks as CP
@@ -920,6 +1153,12 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
     peak_all = _peak_mib(torch, dev, base)
     launches = _counts(SP, CP)
 
+    # the vote's memory envelope: the sub-batch the matcher picks for
+    # these windows, and the whole do_match's peak against its budget
+    budget = matcher._budget_bytes()
+    q_rows = P.next_pow2(max([1] + [len(w[1]) for w in wins]), 128)
+    bsub = matcher.sub_batch(len(wins), matcher._device_state(ht)[3], q_rows)
+
     named = {}                             # window label -> rank-0 track
     for ln in lines:
         m = re.search(r" t=(\d+\.\d)s ", ln)
@@ -949,12 +1188,19 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
           f"device memory peak {peak_stream:.1f} MiB (whole do_match, vote "
           f"included, {peak_all:.1f} MiB; both above the {base / 2**20:.1f} "
           f"MiB already resident); launches {launches}")
+    print(f"broadcast vote envelope: {len(wins)} windows of Q = {q_rows} "
+          f"hashes in sub-batches of {bsub}; do_match peak above resident "
+          f"{peak_all:.1f} MiB against the {budget / 2**20:.1f} MiB budget "
+          f"(_budget_bytes), {len(wins) / wall:.1f} windows/s")
     require(n_files == 1 and len(named) == len(wins),
             f"broadcast: {len(named)} window results for {len(wins)} windows")
     require(len(found) == len(excerpts),
             f"broadcast: excerpts not found {sorted(set(excerpts) - found)}")
     require(fp_share <= 0.05, f"broadcast: {fp} of {filler} filler windows "
                               "report a DB track")
+    require(torch.device(dev).type != "cuda" or peak_all * 2**20 <= budget,
+            f"broadcast: do_match peaked {peak_all:.1f} MiB above resident, "
+            f"past the vote's {budget / 2**20:.1f} MiB budget")
     require(launches["prune_fwd_carry"] > 0 and launches["hpf_scan"] > 0,
             f"the broadcast log did not stream through K1f and K2: "
             f"{launches}")
@@ -963,7 +1209,9 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
             "broadcast_windows_per_s": len(wins) / wall,
             "broadcast_found": len(found), "broadcast_filler_fp": fp_share,
             "broadcast_stream_peak_mib": peak_stream,
-            "broadcast_do_match_peak_mib": peak_all}
+            "broadcast_do_match_peak_mib": peak_all,
+            "broadcast_vote_sub_batch": bsub,
+            "broadcast_vote_budget_mib": budget / 2**20}
 
 
 def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
@@ -972,8 +1220,8 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
     batching); lines equal batch do_match's over the same list."""
     import threading
 
-    from audfprint_tpu.utils.audio import audio_write_wav
-    from audfprint_tpu.utils.timing import Stages
+    from audfprint_torch.utils.audio import audio_write_wav
+    from audfprint_torch.utils.timing import Stages
     from audfprint_torch import cli
     from audfprint_torch.ops import cuda_peaks as CP
     from audfprint_torch.ops import spectro as SP
@@ -1100,8 +1348,8 @@ def phase_wide(torch, rec, ctx, dev, hashbits=None) -> dict:
     """A default-size wide table: phase 6's tracks stored on the device at
     sparse ids past the packed 2^18 cap, against the host store, then the
     queries through the fused path on it."""
-    from audfprint_tpu import params as P
-    from audfprint_tpu.index.hash_table import HashTable
+    from audfprint_torch import params as P
+    from audfprint_torch.index.hash_table import HashTable
     from audfprint_torch.index import device_table as DT
     from audfprint_torch.match.matcher import Matcher
     from audfprint_torch.ops import cuda_peaks as CP
@@ -1180,7 +1428,7 @@ def phase_wide(torch, rec, ctx, dev, hashbits=None) -> dict:
 
 def golden_session(tmpdir: str, main) -> str:
     """tests/test_golden_cli.py's session through the port's CLI."""
-    from audfprint_tpu.utils.audio import audio_write_wav
+    from audfprint_torch.utils.audio import audio_write_wav
 
     common = ["-h", "16", "-b", "20", "-t", "4096"]
     rng = np.random.default_rng(424242)
@@ -1235,8 +1483,8 @@ def golden_session(tmpdir: str, main) -> str:
 
 
 def phase_cli() -> dict:
-    from audfprint_tpu.index.hash_table import HashTable
-    from audfprint_tpu.utils.audio import audio_write_wav
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.utils.audio import audio_write_wav
     from audfprint_torch.cli import main
 
     rng = np.random.default_rng(SEED + 3)
@@ -1288,8 +1536,8 @@ def phase_cli() -> dict:
 def phase_cli_serving(d, db, wavs, songs, query, q, rank0) -> dict:
     """Phase 9's serving modes and wide tables, as subprocesses on the
     3-song database."""
-    from audfprint_tpu.index.hash_table import HashTable
-    from audfprint_tpu.utils.audio import _resample, audio_write_wav
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.utils.audio import _resample, audio_write_wav
 
     # wide tables, host store and device store
     dbw, dbwd = os.path.join(d, "wide.pklz"), os.path.join(d, "wided.pklz")

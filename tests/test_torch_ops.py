@@ -276,3 +276,69 @@ def test_k1_matches_plain_on_card(cuda_device, seed):
         _t(white).to(cuda_device), _t(nf).to(cuda_device), CFG)
     args = (m0, _t(nf).to(cuda_device), env0f, env0b, gvec, CFG.a_dec, 5)
     assert torch.equal(CP.prune_fwd_bwd(*args), CP.prune_fwd_bwd_plain(*args))
+
+
+def _wrapper_case(seed: int, B: int, T: int, F: int):
+    """Seeded wrapper-level K1/K1f inputs: m0 with a third of the bins
+    candidates-to-be, two envelopes and a 2F - 1 template."""
+    rng = np.random.default_rng(seed)
+    m0 = np.where(rng.random((B, T, F)) < 0.3,
+                  rng.standard_normal((B, T, F)) * 2.0 + 1.0, CP._NEG)
+    g = np.exp(-0.5 * (np.arange(-(F - 1), F) / 30.0) ** 2)
+    nf = rng.integers(0, T + 1, B)
+    return (_t(m0.astype(np.float32)),
+            _t(rng.uniform(0, 3, (B, F)).astype(np.float32)),
+            _t(rng.uniform(0, 3, (B, F)).astype(np.float32)),
+            _t(g.astype(np.float32)), _t(nf.astype(np.int32)))
+
+
+@pytest.mark.parametrize("F", [200, 258, 5])
+def test_kernel_padding_is_invisible(F):
+    """The kernels' operands padded to a multiple of 4 bins (m0 with
+    _NEG, envelopes with 0, the template re-centred) give the plain
+    versions' results on the real bins: kept lists, forward lists and
+    the envelope carried out."""
+    m0, e0f, e0b, g, nf = _wrapper_case(F, 3, 60, F)
+    m0p, (e0fp, e0bp), gp, Fp = CP._kernel_inputs(
+        "test", m0, [e0f, e0b], g, 60, 5, lists=True)
+    assert Fp % 4 == 0 and Fp - F < 4 and m0p.shape[-1] == Fp
+    assert gp.shape == (2 * Fp - 1,)
+    assert torch.equal(CP.prune_fwd_bwd_plain(m0p, nf, e0fp, e0bp, gp,
+                                              CFG.a_dec, 5),
+                       CP.prune_fwd_bwd_plain(m0, nf, e0f, e0b, g,
+                                              CFG.a_dec, 5))
+    got = CP.prune_fwd_carry_plain(m0p, e0fp, gp, CFG.a_dec, 5)
+    want = CP.prune_fwd_carry_plain(m0, e0f, g, CFG.a_dec, 5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2][:, :F], want[2])
+
+
+def test_kernel_inputs_refuse_past_the_limits():
+    """Padding past MAX_BINS raises a ValueError that names the limit,
+    before any launch."""
+    m0, e0f, _e0b, g, _nf = _wrapper_case(0, 1, 4, 1023)
+    CP._kernel_inputs("test", m0, [e0f], g, 4, 5, lists=False)
+    m0, e0f, _e0b, g, _nf = _wrapper_case(0, 1, 4, 1025)
+    with pytest.raises(ValueError, match="at most 1024"):
+        CP._kernel_inputs("test", m0, [e0f], g, 4, 5, lists=False)
+
+
+def test_shared_memory_mirror_matches_the_kernel():
+    """cuda_peaks' shared-memory arithmetic uses csrc/prune.cu's constants,
+    and the main path's K1 keeps its lists in shared memory (two rows per
+    SM) while a 3000-frame batch puts them in global memory."""
+    import re
+
+    with open(f"{_build.CSRC}/prune.cu") as f:
+        src = f.read()
+    const = {m.group(1): eval(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = ([\d *]+);", src)}
+    assert const["kStages"] == CP._STAGES
+    assert const["kStageBytes"] == CP._STAGE_BYTES
+    assert const["kMaxSmem"] == CP._MAX_SMEM
+    assert const["kListSmemMax"] == CP._LIST_SMEM_MAX
+    assert CP._smem_bytes(1535, 256, 5, True) == 32768 + 32 + 2048 + 61400
+    assert CP._smem_bytes(1535, 256, 5, True) <= CP._LIST_SMEM_MAX
+    assert CP._smem_bytes(3000, 256, 5, True) > CP._LIST_SMEM_MAX
+    assert max(CP._smem_bytes(0, F, 16, False)
+               for F in range(4, 1025, 4)) < CP._MAX_SMEM
