@@ -38,8 +38,9 @@
 //     is a register select in the owner lane and one shuffle;
 //   * candidate-count skip: a frame runs min(k, c) rounds, c the warp's
 //     candidate count (redux.sync add of the lanes' popcounts), so a frame
-//     with no candidate -- most frames of music -- costs one predicated
-//     compare per bin, one vote, the decay and the list stores; the
+//     with no candidate -- most frames of music -- costs one compare
+//     and one logic op per bin (the candidate mask), one vote, the decay
+//     and the list stores; the
 //     backward pass skips the tests of a frame whose first listed slot is
 //     -1.  The frame loop runs inside a loop over ring chunks, so no frame
 //     pays a division or a barrier, and the list pointers step;
@@ -61,7 +62,11 @@
 // Bit-exactness: every bump is the single f32 product v * g that the plain
 // version forms (the TPU kernel's 3 x bf16 split existed only to reach the
 // MXU); max is exact in any order; no add follows a multiply, so nothing
-// can be contracted into an FMA.
+// can be contracted into an FMA.  The compares, maxima and products of the
+// envelopes are the .ftz forms (common.cuh): the reference flushes
+// subnormal inputs and results, and an envelope decays into that range
+// over minutes of digital silence (ops/ftz.py mirrors the rule in the
+// plain versions).
 //
 // Preconditions (checked by the wrapper, which pads F to a multiple of 4
 // with non-candidate bins): F % 4 == 0 (16-byte bulk copies), 0 < F <=
@@ -71,7 +76,11 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace audfp;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStages = 4;             // ring stages, one mbarrier each
@@ -100,28 +109,6 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
 // The ring of m0 frames of one row: kStages slots of SF frames, chunk c
 // (frames [c*SF, c*SF + SF)) in slot c % kStages.
 struct Ring {
@@ -137,11 +124,7 @@ struct Ring {
     const int n = min(SF, T - t0);
     const uint32_t bytes = (uint32_t)n * F * sizeof(float);
     uint64_t* b = bar + c % kStages;
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-            smem_u32(b)),
-        "r"(bytes)
-        : "memory");
+    mbar_expect_tx(b, bytes);
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
         " [%0], [%1], %2, [%3];" ::"r"(smem_u32(buf + (size_t)(c % kStages) *
@@ -153,8 +136,8 @@ struct Ring {
   // every lane: initialise the barriers and start the first kStages chunks
   __device__ void start(int lane) const {
     if (lane == 0) {
-      for (int s = 0; s < kStages; ++s) mbar_init(bar + s);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      for (int s = 0; s < kStages; ++s) mbar_init(bar + s, 1);
+      mbar_init_fence();
       for (int c = 0; c < kStages; ++c) issue(c);
     }
     __syncwarp();
@@ -173,7 +156,7 @@ struct Ring {
   __device__ void refill(int c, int lane) const {
     __syncwarp();
     if (lane == 0) {
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      fence_proxy_async();
       issue(c + kStages);
     }
   }
@@ -212,7 +195,7 @@ __device__ __forceinline__ void load_bins(const float* fr, int base, int F,
 // last frame in env.  gs is the 2F - 1 template in shared memory.  The
 // chain is a few dozen instructions of one warp per frame, so the loop
 // keeps them few: no division per frame, pointers stepped, and a frame
-// with no candidate costs one predicated compare per bin and one vote.
+// with no candidate costs a compare and a logic op per bin and one vote.
 template <int NB>
 __device__ void forward_pass(const Ring& ring, const float* gs, int* lp,
                              float* lv, float (&env)[NB], int T, int F, int k,
@@ -226,16 +209,12 @@ __device__ void forward_pass(const Ring& ring, const float* gs, int* lp,
     for (int u = 0; u < n; ++u, fr += F, lp += k, lv += k) {
       float x[NB];
       load_bins<NB>(fr, base, F, x);
-      bool any = false;
+      uint32_t mask = 0;
 #pragma unroll
-      for (int j = 0; j < NB; ++j) any |= x[j] > env[j];
+      for (int j = 0; j < NB; ++j) mask |= gt_ftz_mask(x[j], env[j]) & (1u << j);
       int myp = -1;
       float myv = -CUDART_INF_F;
-      if (__any_sync(kFull, any)) {
-        uint32_t mask = 0;
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-          if (x[j] > env[j]) mask |= 1u << j;
+      if (__any_sync(kFull, mask != 0)) {
         const int rounds = min(k, __reduce_add_sync(kFull, __popc(mask)));
         float ne[NB];
 #pragma unroll
@@ -262,13 +241,15 @@ __device__ void forward_pass(const Ring& ring, const float* gs, int* lp,
           const float* g = gl - p;
 #pragma unroll
           for (int j = 0; j < NB; ++j)
-            if (base + j < F) ne[j] = fmaxf(ne[j], v * g[j]);
+            if (base + j < F) ne[j] = max_ftz(ne[j], mul_ftz(v, g[j]));
         }
 #pragma unroll
-        for (int j = 0; j < NB; ++j) env[j] = fmaxf(env[j], ne[j]) * a_dec;
+        for (int j = 0; j < NB; ++j)
+          env[j] = mul_ftz(max_ftz(env[j], ne[j]), a_dec);
       } else {
 #pragma unroll
-        for (int j = 0; j < NB; ++j) env[j] = fmaxf(env[j], 0.0f) * a_dec;
+        for (int j = 0; j < NB; ++j)
+          env[j] = mul_ftz(max_ftz(env[j], 0.0f), a_dec);
       }
       if (lane < k) {
         lp[lane] = myp;
@@ -366,17 +347,17 @@ __global__ void __launch_bounds__(32)
       for (int j = 1; j < NB; ++j)
         if (j == jj) e = env[j];
       e = __shfl_sync(kFull, e, p / NB);
-      if (v >= e) {
+      if (ge_ftz(v, e)) {
         if (lane == i) rec = p;
         const float* g = gl - p;
 #pragma unroll
         for (int j = 0; j < NB; ++j)
-          if (base + j < F) env[j] = fmaxf(env[j], v * g[j]);
+          if (base + j < F) env[j] = max_ftz(env[j], mul_ftz(v, g[j]));
       }
     }
     if (lane < k) *kt = rec;
 #pragma unroll
-    for (int j = 0; j < NB; ++j) env[j] *= a_dec;
+    for (int j = 0; j < NB; ++j) env[j] = mul_ftz(env[j], a_dec);
   }
 }
 

@@ -26,6 +26,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("hpf.cu", "prune.cu")
+HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "audfprint_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,8 +38,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, y, x0, y0, xT, yT, B, T, F, pole, stream (carry pointers may be 0)
-    "hpf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, y, x0, y0, xT, yT, B, T, F, pole, then the launch plan of
+    # spectro.k2_plan (frames, stages), stream (carry pointers may be 0)
+    "hpf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     # m0, n_frames, env0f, env0b, gvec, lpos, lval, kept, B, T, F, k,
     # a_dec, stream
     "prune_fwd_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -57,7 +59,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())

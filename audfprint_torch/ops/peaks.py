@@ -14,7 +14,10 @@ to the JAX package:
   * the gaussian bump is read from the same tabulated full-support
     template (params.gaussian_template) and formed as one f32 product;
   * envelopes are nonnegative, so "no update outside the bump support"
-    equals "max with 0".
+    equals "max with 0";
+  * the envelopes' compares, products and decays flush subnormal inputs
+    and results as the reference does (ops/ftz.py): over minutes of
+    digital silence an envelope decays into that range.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from audfprint_torch import params as P
+from audfprint_torch.ops import ftz as FTZ
 from audfprint_torch.ops.config import PipelineConfig
 
 _NEG = float("-inf")
@@ -60,11 +64,12 @@ def locmax2(s: torch.Tensor) -> torch.Tensor:
 
 
 def _spread_vector(v: torch.Tensor, gtab: torch.Tensor) -> torch.Tensor:
-    """Oracle spreadpeaksinvector: max of bumps at local maxima of v, (B,F)."""
-    lm = locmax2(v)
-    contrib = torch.where(lm[:, :, None], v[:, :, None] * gtab[None],
-                          v.new_zeros(()))
-    return contrib.amax(dim=1)
+    """Oracle spreadpeaksinvector: max of bumps at local maxima of v, (B,F).
+    v reads subnormals as zeros, in the compares too; the (B, F, F)
+    products flush once, after the maximum (FTZ.amax_mul)."""
+    v = FTZ.flush(v)
+    vl = torch.where(locmax2(v), v, v.new_zeros(()))
+    return FTZ.amax_mul(vl[:, :, None], gtab[None], dim=1)
 
 
 def head_envelope(y: torch.Tensor, n_frames: torch.Tensor,
@@ -110,13 +115,15 @@ def fwd_lists(m0: torch.Tensor, env0: torch.Tensor, gtab: torch.Tensor,
     vals = m0.new_empty((B, T, k))
     pos = torch.empty((B, T, k), dtype=torch.long, device=m0.device)
     ok = torch.empty((B, T, k), dtype=torch.bool, device=m0.device)
-    sthresh = env0
+    sthresh = FTZ.flush(env0)
     zero = m0.new_zeros(())
     for t in range(T):
         m = m0[:, t]
-        v, p, pv = _topk_valdesc_posdesc(torch.where(m > sthresh, m, _NEG), k)
-        contrib = torch.where(pv[:, :, None], v[:, :, None] * gtab[p], zero)
-        sthresh = torch.maximum(sthresh, contrib.amax(dim=1)) * a_dec
+        v, p, pv = _topk_valdesc_posdesc(
+            torch.where(FTZ.flush(m) > sthresh, m, _NEG), k)
+        contrib = torch.where(pv[:, :, None], FTZ.mul(v[:, :, None], gtab[p]),
+                              zero)
+        sthresh = FTZ.mul(torch.maximum(sthresh, contrib.amax(dim=1)), a_dec)
         vals[:, t], pos[:, t], ok[:, t] = v, p, pv
     return vals, pos, ok, sthresh
 
@@ -131,6 +138,7 @@ def bwd_lists(vals: torch.Tensor, pos: torch.Tensor, ok: torch.Tensor,
     B, T, k = pos.shape
     bidx = torch.arange(B, device=pos.device)
     kept = torch.full((B, T, k), -1, dtype=torch.long, device=pos.device)
+    env0 = FTZ.flush(env0)
     sthresh = env0
     zero = env0.new_zeros(())
     for t in range(T - 1, -1, -1):
@@ -139,11 +147,12 @@ def bwd_lists(vals: torch.Tensor, pos: torch.Tensor, ok: torch.Tensor,
         for i in range(k):
             v, p, pv = vals[:, t, i], pos[:, t, i], ok[:, t, i]
             pc = torch.clamp(p, min=0)
-            keep = pv & valid_t & (v >= sthresh[bidx, pc])
-            contrib = torch.where(keep[:, None], v[:, None] * gtab[pc], zero)
+            keep = pv & valid_t & (FTZ.flush(v) >= sthresh[bidx, pc])
+            contrib = torch.where(keep[:, None],
+                                  FTZ.mul(v[:, None], gtab[pc]), zero)
             sthresh = torch.maximum(sthresh, contrib)
             kept[:, t, i] = torch.where(keep, p, -1)
-        sthresh = sthresh * a_dec
+        sthresh = FTZ.mul(sthresh, a_dec)
     return kept
 
 

@@ -4,7 +4,8 @@ Audio batch (B, N) -> whitened log-magnitude spectrogram (B, T, n_bins)
 with per-file valid-frame masking, then the causal onset HPF along time.
 The FFT is torch.fft.rfft (cuFFT on the card), so the spectrogram agrees
 with the JAX package within the front end's tolerance, not bit for bit;
-the HPF is bit-exact given the same input.
+the HPF is bit-exact given the same input, subnormals flushed as the
+reference flushes them (ops/ftz.py).
 
 `hpf` is kernel K2 (csrc/hpf.cu) on CUDA tensors and its plain version,
 a loop over T, on CPU tensors; both take and return the recurrence's
@@ -14,11 +15,13 @@ carry, so streamed ingest continues it across chunks of frames.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from audfprint_torch import params as P
+from audfprint_torch.ops import ftz as FTZ
 from audfprint_torch.ops.config import PipelineConfig
 
 # kernel launches made by hpf (read by the on-card smoke run)
@@ -74,23 +77,6 @@ def _pole(cfg: PipelineConfig) -> float:
     return float(np.float32(cfg.hpf_pole ** (1.0 / P.OVERSAMP)))
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor,
-            c: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 a * b + c (one rounding, as a hardware
-    FMA).  The f64 product of two f32 values is exact; the f64 sum is made
-    round-to-odd (TwoSum error term), so the final cast to f32 rounds once
-    correctly instead of twice."""
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    bb = s - p
-    err = (p - (s - bb)) + (cd - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
-
-
 def hpf_plain(white: torch.Tensor, cfg: PipelineConfig, carry=None):
     """Plain version of K2: y[t] = fma(pole, y[t-1], x[t] - x[t-1]).
 
@@ -98,8 +84,10 @@ def hpf_plain(white: torch.Tensor, cfg: PipelineConfig, carry=None):
     (y, (x[T-1], y[T-1])), the carry that continues the recurrence into
     the next chunk of frames.  The reference (XLA on the CPU) contracts
     the recurrence into a fused multiply-add with the difference rounded
-    first; this forms the same single rounding, so the result is
-    bit-exact against it."""
+    first, and flushes subnormal inputs and results (ops/ftz.py); this
+    forms the same single rounding under the same rule, so the result is
+    bit-exact against it.  x[T-1] leaves unflushed, as the reference's
+    scan carries it."""
     pole = torch.tensor(_pole(cfg), dtype=torch.float32, device=white.device)
     out = torch.empty_like(white)
     if carry is None:
@@ -109,10 +97,71 @@ def hpf_plain(white: torch.Tensor, cfg: PipelineConfig, carry=None):
         xprev, yprev = carry
     for t in range(white.shape[1]):
         x = white[:, t]
-        yprev = fma_f32(pole, yprev, x - xprev)
+        yprev = FTZ.fma(pole, yprev, FTZ.sub(x, xprev))
         out[:, t] = yprev
         xprev = x
     return out, (xprev, yprev)
+
+
+# K2's launch plan (csrc/hpf.cu).  A block scans a strip of K2_STRIP
+# consecutive bins of one row, walking t; the grid covers B x ceil(Fp /
+# K2_STRIP) strips.  Frames reach shared memory as TMA boxes of `frames` x
+# K2_STRIP floats, `stages` of them in flight, and y leaves through
+# K2_Y_STAGES output boxes.  K2_STRIP, K2_Y_STAGES and K2_MAX_SMEM mirror
+# kStrip, kYStages and kMaxSmem in hpf.cu.
+K2_SMS = 132                  # SMs of an H100 SXM
+K2_STRIP = 32                 # bins a block owns (128 B a frame)
+K2_Y_STAGES = 3
+K2_MAX_SMEM = 232448          # a block's shared memory on sm_90
+
+
+class K2Plan(NamedTuple):
+    Fp: int          # bins the kernel scans: F padded to a multiple of 4
+    frames: int      # frames of one box (one ring stage)
+    stages: int      # input boxes in flight per strip
+    n_strips: int    # blocks
+    smem: int        # dynamic shared memory bytes of a block
+
+
+def k2_plan(B: int, T: int, F: int, sms: int = K2_SMS) -> K2Plan:
+    """K2's launch for a (B, T, F) scan.  With at most one strip per SM (a
+    streamed chunk, a query) each strip gets 256-frame boxes and 96 KB of
+    input in flight: a box's fixed cost in the scanning warp (two barrier
+    waits and two arrivals) is paid once per 256 frames, and the loads run
+    ahead of the chain of T dependent FMAs.  A batch has strips to spare:
+    8 KB boxes, four in flight, three blocks an SM.  The plan does not
+    depend on T: the last box of a row is cut at T."""
+    Fp = -(-F // 4) * 4
+    n = B * -(-Fp // K2_STRIP)
+    frames = 256 if n <= sms else 64
+    stages = 3 if n <= sms else 4
+    smem = ((stages + K2_Y_STAGES) * frames * K2_STRIP * 4
+            + 2 * (stages + K2_Y_STAGES) * 8)
+    return K2Plan(Fp, frames, stages, n, smem)
+
+
+def k2_operands(x: torch.Tensor, carry, Fp: int):
+    """K2's operands: the bins padded with zeros to Fp (16-byte rows for
+    the TMA boxes), x 16-byte aligned.  The pad bins scan zeros and are cut
+    off by k2_results before anything is returned."""
+    F = x.shape[-1]
+    if Fp != F:
+        x = torch.nn.functional.pad(x, (0, Fp - F))
+        if carry is not None:
+            carry = tuple(torch.nn.functional.pad(c, (0, Fp - F))
+                          for c in carry)
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x, carry
+
+
+def k2_results(y: torch.Tensor, x_out: torch.Tensor, y_out: torch.Tensor,
+               F: int):
+    """(y, carry out) on the real F bins of K2's padded results."""
+    if y.shape[-1] == F:
+        return y, (x_out, y_out)
+    return (y[..., :F].contiguous(),
+            (x_out[:, :F].contiguous(), y_out[:, :F].contiguous()))
 
 
 def hpf(white: torch.Tensor, cfg: PipelineConfig, carry=None):
@@ -136,20 +185,26 @@ def hpf(white: torch.Tensor, cfg: PipelineConfig, carry=None):
                       for c in carry)
         if any(c.shape != (B, F) for c in carry):
             raise ValueError(f"hpf: the carry must be two ({B}, {F}) tensors")
-    y = torch.empty_like(x)
     if x.numel() == 0:
         if carry is None:
             carry = (x.new_zeros(B, F), x.new_zeros(B, F))
-        return y, carry
-    x_out = x.new_empty(B, F)
-    y_out = x.new_empty(B, F)
+        return torch.empty_like(x), carry
+    plan = k2_plan(B, T, F, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    if plan.smem > K2_MAX_SMEM:
+        raise ValueError(f"hpf: needs {plan.smem} bytes of shared memory")
+    xk, carry = k2_operands(x, carry, plan.Fp)
+    y = torch.empty_like(xk)
+    x_out = xk.new_empty(B, plan.Fp)
+    y_out = xk.new_empty(B, plan.Fp)
     x0, y0 = (None, None) if carry is None else (carry[0].data_ptr(),
                                                  carry[1].data_ptr())
     lib = _build.load()
     with torch.cuda.device(x.device):
-        err = lib.hpf_scan(x.data_ptr(), y.data_ptr(), x0, y0,
-                           x_out.data_ptr(), y_out.data_ptr(), B, T, F,
-                           _pole(cfg), torch.cuda.current_stream().cuda_stream)
+        err = lib.hpf_scan(xk.data_ptr(), y.data_ptr(), x0, y0,
+                           x_out.data_ptr(), y_out.data_ptr(), B, T,
+                           plan.Fp, _pole(cfg), plan.frames, plan.stages,
+                           torch.cuda.current_stream().cuda_stream)
     _build.check(err, "hpf_scan")
     launches["hpf_scan"] += 1
-    return y, (x_out, y_out)
+    return k2_results(y, x_out, y_out, F)

@@ -7,23 +7,33 @@ Phases (any failure exits non-zero before the result line):
   1. environment: nvidia-smi name and power limit, torch and CUDA versions
   2. build the CUDA kernels from audfprint_torch/csrc (nvcc, sm_90a)
   3. K2 (hpf_scan) against its plain version at the main path's shape
-     (256 rows x 1535 frames x 256 bins, one 30 s bucket), bit for bit
+     (256 rows x 1535 frames x 256 bins, one 30 s bucket), then K2_CASES
+     with and without a carry (ragged and padded widths, T = 0, 1, 5 and
+     8191, a query, 4 shifts, subnormal-heavy input, a chunk decaying
+     through silence into the subnormal range) and chunks of 1001, 777
+     and 2414 frames against one pass at F = 256 and 258, all bit for
+     bit; K2 timed at the batch, a listen query and the streamed chunk
+     with a carry at 1 and 4 shifts, beside its byte bound; the printed
+     line adds a chain floor derived from an assumed FMA latency (T x 4
+     cycles at the sampled SM clock), which is not a measurement
   4. K1 (prune_fwd_bwd) against its plain version on random spectrograms
      with ragged n_frames (including 0 and 1) and on np.round-quantised
      tie-heavy ones, and at 512 bins with 8 peaks per frame, bit for bit
      on the kept lists; a few rows against the numpy oracle's
      find_peaks_mask; then K1_CASES at the wrapper's level (dense frames
      with more than k candidates each, F = 200 and F = 258, B = 1, lists
-     in global memory, F = 1024 with k = 16, F = 20)
+     in global memory, F = 1024 with k = 16, F = 20, 6,000 frames of
+     silence whose envelopes decay into the subnormal range)
   5. K1f (prune_fwd_carry) against its plain version at the streamed
      chunk shapes 1 x 8192 x 256 and 4 x 2048 x 256, random and
      tie-heavy, envelope in from the head and from a carry; K1f and K2
      over 3 carried chunks against one pass, bit for bit; then K1F_CASES
      (dense, F = 200, F = 258, a chunk ending inside a ring stage, one
-     shorter than a stage, an empty one, F = 1024) and chunks of 1001, 777
-     and 2414 frames against one pass at F = 256 and 258.  Each kernel's
-     time beside its bound (bytes over 3.35 TB/s or float32 operations
-     over 67 TFLOP/s, whichever is longer)
+     shorter than a stage, an empty one, F = 1024, 22,000 frames of
+     silence) and chunks of 1001, 777 and 2414 frames against one pass at
+     F = 256 and 258.  Each kernel's time (device time of back-to-back
+     launches, cuda_ms) beside its bound (bytes over 3.35 TB/s or float32
+     operations over 67 TFLOP/s, whichever is longer)
   6. the main path at BASELINE config 2 ("1k-track DB of 30s clips; clean
      exact-segment queries"): 1,000 synthetic music-like 30 s tracks from
      a fixed seed -> Analyzer(device="cuda") -> host HashTable (2^20 x 100)
@@ -187,11 +197,20 @@ def harmonic_track(seed: int, n: int) -> np.ndarray:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps calls (after one warm-up)."""
+    """Mean device milliseconds of fn() over reps calls (after one warm-up).
+    The calls queue behind a kernel that spins for about as long as the
+    host takes to issue them, so a kernel shorter than its launch is timed
+    back to back, not at the host's pace."""
     import torch
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(0.05, 1.5 * host * reps + 1e-3) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -232,17 +251,43 @@ def k1f_bound(B: int, T: int, F: int, k: int, rounds: int) -> tuple:
     return bound(nbytes, 3 * B * T * F + 2 * F * rounds)
 
 
-def _seeded_prune_case(torch, rng, dev, b: int, t: int, F: int,
-                       dense: bool):
+def _silence(rng, b: int, t: int, F: int, scale: float = 1.0,
+             head: int = 50) -> np.ndarray:
+    """Whitened frames: a sounding head, then the constant that digital
+    silence becomes after the log floor (the HPF decays through the
+    subnormal range after ~4,400 frames, an envelope after ~18,000)."""
+    x = (rng.standard_normal((b, t, F)) * 2.0 * scale).astype(np.float32)
+    x[:, head:] = np.float32(-3.75 * scale)
+    return x
+
+
+def _seeded_prune_case(torch, rng, dev, b: int, t: int, F: int, kind: str):
     """Wrapper-level K1/K1f inputs from a seed: m0, an envelope and the
     2F - 1 template.  Random: a third of the bins hold N(1, 2) values, the
     rest _NEG, under a U(0, 3) envelope.  Dense: every bin is a candidate
     in every frame (frame t's values (t + 1) * 8 + {0..3} exceed every
-    earlier envelope, a zero envelope at t = 0), with ties in each frame."""
+    earlier envelope, a zero envelope at t = 0), with ties in each frame.
+    Silence: the candidate map and head envelope of the HPF (plain) of
+    _silence frames, the first row 1e-30 quiet so its envelopes reach the
+    subnormal range early."""
     from audfprint_torch import params as P
+    from audfprint_torch.ops.config import PipelineConfig
     from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import peaks as PK
+    from audfprint_torch.ops import spectro as SP
 
-    if dense:
+    if kind == "silence":
+        cfg = PipelineConfig()
+        w = np.concatenate([_silence(rng, 1, t, F, 1e-30),
+                            _silence(rng, b - 1, t, F)]) if b > 1 \
+            else _silence(rng, 1, t, F)
+        y = SP.hpf_plain(torch.from_numpy(w).to(dev), cfg)[0]
+        nf = torch.full((b,), t, dtype=torch.int32, device=dev)
+        g = torch.as_tensor(P.gaussian_template(P.F_SD, F - 1)
+                            .astype(np.float32), device=dev)
+        return (CP.candidate_map(y, nf),
+                PK.head_envelope(y, nf, CP._bump_table(g, F)), g)
+    if kind == "dense":
         m0 = (np.arange(1, t + 1, dtype=np.float32)[None, :, None] * 8.0
               + rng.integers(0, 4, (b, t, F)).astype(np.float32))
         env = np.zeros((b, F), np.float32)
@@ -256,38 +301,126 @@ def _seeded_prune_case(torch, rng, dev, b: int, t: int, F: int,
 
 
 # wrapper-level cases beyond the main path's shapes: (name, B, T, F, k,
-# dense).  F = 200 is not a multiple of 32, F = 258 not one of 4 (the
+# kind).  F = 200 is not a multiple of 32, F = 258 not one of 4 (the
 # wrapper pads it); 3000 frames put K1's lists in global memory; F = 1024
 # with k = 16 is the widest a lane holds (32 bins); T = 8191 ends inside a
-# ring stage, T = 5 is less than one stage
-K1_CASES = [("dense", 8, 300, 256, 5, True), ("F=200", 16, 400, 200, 5, False),
-            ("F=258", 16, 400, 258, 5, False),
-            ("B=1 listen", 1, 431, 256, 5, False),
-            ("lists in global memory", 4, 3000, 256, 5, False),
-            ("F=1024 k=16", 4, 200, 1024, 16, False),
-            ("F=20 k=3", 3, 64, 20, 3, False)]
-K1F_CASES = [("dense", 2, 1000, 256, 5, True),
-             ("F=200", 2, 700, 200, 5, False),
-             ("F=258", 2, 700, 258, 5, False),
-             ("ragged ring", 1, 8191, 256, 5, False),
-             ("T < one stage", 3, 5, 256, 5, False),
-             ("empty chunk", 2, 0, 256, 5, False),
-             ("F=1024 k=16", 2, 300, 1024, 16, False)]
+# ring stage, T = 5 is less than one stage; the long silences decay both
+# envelopes (K1) and the carried one (K1f) into the subnormal range,
+# which the reference flushes
+K1_CASES = [("dense", 8, 300, 256, 5, "dense"),
+            ("F=200", 16, 400, 200, 5, "random"),
+            ("F=258", 16, 400, 258, 5, "random"),
+            ("B=1 listen", 1, 431, 256, 5, "random"),
+            ("lists in global memory", 4, 3000, 256, 5, "random"),
+            ("F=1024 k=16", 4, 200, 1024, 16, "random"),
+            ("F=20 k=3", 3, 64, 20, 3, "random"),
+            ("long silence", 2, 6000, 256, 5, "silence")]
+K1F_CASES = [("dense", 2, 1000, 256, 5, "dense"),
+             ("F=200", 2, 700, 200, 5, "random"),
+             ("F=258", 2, 700, 258, 5, "random"),
+             ("ragged ring", 1, 8191, 256, 5, "random"),
+             ("T < one stage", 3, 5, 256, 5, "random"),
+             ("empty chunk", 2, 0, 256, 5, "random"),
+             ("F=1024 k=16", 2, 300, 1024, 16, "random"),
+             ("long silence", 1, 22000, 256, 5, "silence")]
+
+# K2 cases, each checked with and without a carry: (name, B, T, F, kind).
+# Ragged strips (F = 200, 20), a padded width (258), the widest (1024),
+# no frame, one frame, fewer than one box, a row ending inside a box, a
+# query, the streamed shapes, the batch, inputs that are subnormal or sit
+# either side of 2^-126, and a chunk decaying through a long constant
+# stretch into the subnormal range (tests/test_torch_ftz.py checks the
+# launch plan of every case on the CPU)
+K2_CASES = [("F=200", 2, 700, 200, "random"), ("F=258", 2, 700, 258, "random"),
+            ("F=20, B*F < 32", 1, 300, 20, "random"),
+            ("F=1024", 2, 600, 1024, "random"), ("T=0", 2, 0, 256, "random"),
+            ("T=1", 2, 1, 256, "random"), ("T < one box", 3, 5, 256, "random"),
+            ("T=8191", 2, 8191, 256, "random"),
+            ("listen query", 1, 431, 256, "random"),
+            ("4 shifts", 4, 8192, 256, "random"),
+            ("batch", 256, 1535, 256, "random"),
+            ("subnormal-heavy", 2, 700, 256, "subnormal"),
+            ("decay through silence", 1, 6000, 256, "silence")]
+
+
+def _k2_input(rng, b: int, t: int, F: int, kind: str) -> np.ndarray:
+    """K2 input frames from a seed: N(0, 3) values; subnormal-heavy ones
+    (subnormals, +-2^-126 and its neighbours, signed zeros, tiny normals);
+    or a sounding head then a constant (_silence)."""
+    if kind == "silence":
+        return _silence(rng, b, t, F)
+    x = (rng.standard_normal((b, t, F)) * 3.0).astype(np.float32)
+    if kind == "subnormal":
+        tiny = np.float32(2.0 ** -126)
+        edge = np.float32([tiny, -tiny, np.nextafter(tiny, np.float32(0)),
+                           np.nextafter(tiny, np.float32(1)), 1e-39, -1e-39,
+                           1e-45, 0.0, -0.0, 3e-38])
+        x = np.where(rng.random(x.shape) < 0.7, rng.choice(edge, x.shape),
+                     x * np.float32(1e-37)).astype(np.float32)
+    return x
+
+
+def _same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_k2_cases(torch, dev, rng) -> None:
+    """K2 against its plain version, bit for bit (y and the carry out), on
+    K2_CASES with and without a carry, and chunks of 1001, 777 and 2414
+    frames against one pass at F = 256 and 258."""
+    from audfprint_torch.ops.config import PipelineConfig
+    from audfprint_torch.ops import spectro as SP
+
+    cfg = PipelineConfig()
+    for name, b, t, F, kind in K2_CASES:
+        x = torch.from_numpy(_k2_input(rng, b, t, F, kind)).to(dev)
+        for carry in (None, tuple(torch.from_numpy(
+                (rng.standard_normal((b, F)) * 3.0).astype(np.float32)).to(dev)
+                for _ in range(2))):
+            got = SP.hpf(x, cfg, carry)
+            want = SP.hpf_plain(x, cfg, carry)
+            torch.cuda.synchronize()
+            require(_same_bits(torch, got[0], want[0])
+                    and all(_same_bits(torch, u, v)
+                            for u, v in zip(got[1], want[1])),
+                    f"K2 differs from its plain version, case {name}, "
+                    f"carry {carry is not None}")
+        print(f"K2 hpf_scan case {name} ({b},{t},{F}): bit-exact vs plain "
+              f"with and without a carry")
+    for F in (256, 258):
+        x = torch.from_numpy(_k2_input(rng, 2, 4192, F, "random")).to(dev)
+        c0 = tuple(torch.rand((2, F), device=dev) for _ in range(2))
+        whole, c_all = SP.hpf(x, cfg, c0)
+        parts, carry = [], c0
+        for a, e in ((0, 1001), (1001, 1778), (1778, 4192)):
+            y, carry = SP.hpf(x[:, a:e].contiguous(), cfg, carry)
+            parts.append(y)
+        require(_same_bits(torch, torch.cat(parts, 1), whole)
+                and all(_same_bits(torch, u, v) for u, v in zip(carry, c_all)),
+                f"K2 over chunks of 1001, 777 and 2414 frames differs from "
+                f"one pass at F = {F}")
+        print(f"K2 (2,4192,{F}) in chunks of 1001, 777 and 2414 frames "
+              "equals one pass bit for bit")
 
 
 def check_k1_cases(torch, dev, rng, a_dec: float) -> None:
     """K1 against its plain version, bit for bit, on K1_CASES."""
     from audfprint_torch.ops import cuda_peaks as CP
 
-    for name, b, t, F, k, dense in K1_CASES:
-        m0, env, g = _seeded_prune_case(torch, rng, dev, b, t, F, dense)
+    for name, b, t, F, k, kind in K1_CASES:
+        m0, env, g = _seeded_prune_case(torch, rng, dev, b, t, F, kind)
         nf_np = rng.integers(0, t + 1, b).astype(np.int32)
         nf_np[:3] = [t, 0, 1][:b]
+        if kind == "silence":
+            nf_np[:] = t
         nf = torch.from_numpy(nf_np).to(dev)
         env_b = torch.from_numpy(
             rng.uniform(0.0, 3.0, (b, F)).astype(np.float32)).to(dev)
-        if dense:
+        if kind == "dense":
             env_b.zero_()
+        elif kind == "silence":            # the tail frame's spread: zero
+            env_b = env * 0.0
         kept = CP.prune_fwd_bwd(m0, nf, env, env_b, g, a_dec, k)
         plain = CP.prune_fwd_bwd_plain(m0, nf, env, env_b, g, a_dec, k)
         torch.cuda.synchronize()
@@ -303,8 +436,8 @@ def check_k1f_cases(torch, dev, rng, a_dec: float) -> None:
     carried chunks of uneven lengths against one pass at F = 256 and 258."""
     from audfprint_torch.ops import cuda_peaks as CP
 
-    for name, b, t, F, k, dense in K1F_CASES:
-        m0, env, g = _seeded_prune_case(torch, rng, dev, b, t, F, dense)
+    for name, b, t, F, k, kind in K1F_CASES:
+        m0, env, g = _seeded_prune_case(torch, rng, dev, b, t, F, kind)
         got = CP.prune_fwd_carry(m0, env, g, a_dec, k)
         want = CP.prune_fwd_carry_plain(m0, env, g, a_dec, k)
         torch.cuda.synchronize()
@@ -313,7 +446,8 @@ def check_k1f_cases(torch, dev, rng, a_dec: float) -> None:
         print(f"K1f prune_fwd_carry case {name} ({b},{t},{F}, k={k}): "
               f"bit-exact vs plain ({int((got[0] >= 0).sum())} peaks)")
     for F in (256, 258):
-        m0, env, g = _seeded_prune_case(torch, rng, dev, 2, 4192, F, False)
+        m0, env, g = _seeded_prune_case(torch, rng, dev, 2, 4192, F,
+                                        "random")
         whole = CP.prune_fwd_carry(m0, env, g, a_dec, 5)
         lp, lv = [], []
         for c0, c1 in ((0, 1001), (1001, 1778), (1778, 4192)):
@@ -349,13 +483,9 @@ def phase_kernels(torch, rec: dict) -> None:
     torch.cuda.synchronize()
     err = (y - yp).abs().max().item()
     require(torch.equal(y, yp), f"K2 differs from its plain version ({err})")
-    k2_ms = cuda_ms(lambda: SP.hpf(x, cfg), 20)
-    k2_plain = cuda_ms(lambda: SP.hpf_plain(x, cfg), 2)
-    print(f"K2 hpf_scan ({B},{T},{F}): bit-exact, kernel {k2_ms:.4f} ms, "
-          f"plain {k2_plain:.2f} ms")
-    bms, bby = bound(8 * B * T * F, 3 * B * T * F)
-    rec["hpf_scan"] = dict(max_abs_err=err, ms=k2_ms, plain_ms=k2_plain,
-                           bound_ms=bms, bound_by=bby, library_ms=None)
+    check_k2_cases(torch, dev, rng)
+    rec["hpf_scan"] = dict(max_abs_err=err, library_ms=None,
+                           **k2_timings(torch, dev, rng))
 
     # ---- K1 ----
     worst = 0
@@ -422,6 +552,59 @@ def phase_kernels(torch, rec: dict) -> None:
                                 plain_ms=k1_plain, bound_ms=k1_b[0],
                                 bound_by=k1_b[1], library_ms=None,
                                 rounds_per_frame=k1_stats[1])
+
+
+def sm_clock_mhz(torch) -> float:
+    """The SM clock under load: nvidia-smi samples it while a spinning
+    kernel keeps the card busy."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1.5 * 2e9))
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                           "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    return float(proc.stdout.strip().splitlines()[0])
+
+
+# K2's dependent step: one FMA a frame, assumed to take 4 cycles of latency
+# on Hopper (an assumption, not measured here)
+FMA_LATENCY_CYCLES = 4
+
+
+def k2_timings(torch, dev, rng, reps: int = 50) -> dict:
+    """K2 at the main path's shapes: the batch (config 2's 256 x 30 s), a
+    listen query, and the streamed chunk with a carry at --shifts 1 and 4;
+    beside each its byte bound (x read and y written once; the carry's
+    four (B, F) planes).  The printed line adds a chain floor, T dependent
+    FMAs at FMA_LATENCY_CYCLES each at the SM clock sampled under load:
+    derived from an assumed latency, so it stays out of the record."""
+    from audfprint_torch.ops.config import PipelineConfig
+    from audfprint_torch.ops import spectro as SP
+
+    cfg = PipelineConfig()
+    mhz = sm_clock_mhz(torch)
+    out = {"sm_clock_mhz": mhz}
+    for key, b, t, carried in (("", 256, 1535, False),
+                               ("listen_", 1, 431, False),
+                               ("carry_", 1, 8192, True),
+                               ("carry4_", 4, 8192, True)):
+        F = cfg.n_bins
+        x = torch.from_numpy(
+            rng.standard_normal((b, t, F)).astype(np.float32)).to(dev)
+        c = (tuple(torch.zeros((b, F), device=dev) for _ in range(2))
+             if carried else None)
+        ms = cuda_ms(lambda: SP.hpf(x, cfg, c), reps)
+        plain = cuda_ms(lambda: SP.hpf_plain(x, cfg, c), 1)
+        bms, bby = bound(4 * (2 * b * t * F + (4 * b * F if carried else 0)),
+                         3 * b * t * F)
+        floor = t * FMA_LATENCY_CYCLES / (mhz * 1e3)
+        out.update({f"{key}ms": ms, f"{key}plain_ms": plain,
+                    f"{key}bound_ms": bms, f"{key}bound_by": bby})
+        print(f"K2 hpf_scan ({b},{t},{F}){' with a carry' if carried else ''}"
+              f": kernel {ms:.4f} ms, plain {plain:.1f} ms, bound {bms:.5f} "
+              f"ms ({bby}); derived chain floor {floor:.5f} ms ({t} FMAs x "
+              f"{FMA_LATENCY_CYCLES} assumed cycles at {mhz:.0f} MHz)")
+    return out
 
 
 def k1_rounds(torch, m0, env0f, gvec, kept, cfg) -> tuple:
@@ -528,7 +711,8 @@ def phase_stream_kernels(torch, rec: dict, dev, shapes=((1, 8192), (4, 2048)),
     # the chain's two costs: a frame with no candidate (m0 all _NEG) and
     # one with k argmax rounds (every bin a candidate)
     m_empty = torch.full_like(m0, CP._NEG)
-    m_dense, env_d, _g = _seeded_prune_case(torch, rng, dev, b, t, F, True)
+    m_dense, env_d, _g = _seeded_prune_case(torch, rng, dev, b, t, F,
+                                            "dense")
     empty_ms = cuda_ms(
         lambda: CP.prune_fwd_carry(m_empty, env0, gvec, a, k), reps)
     dense_ms = cuda_ms(
@@ -542,23 +726,14 @@ def phase_stream_kernels(torch, rec: dict, dev, shapes=((1, 8192), (4, 2048)),
         lambda: CP.prune_fwd_carry_plain(m0, env0, gvec, a, k), 1)
     fwd = int((whole[0] >= 0).sum().item())
     k1f_b = k1f_bound(b, t, F, k, fwd)
-    c0_ = (torch.zeros((b, F), device=dev), torch.zeros((b, F), device=dev))
-    k2c_ms = cuda_ms(lambda: SP.hpf(white, cfg, c0_), reps)
-    k2c_plain = cuda_ms(lambda: SP.hpf_plain(white, cfg, c0_), 1)
-    k2c_b = bound(4 * (2 * b * t * F + 4 * b * F), 3 * b * t * F)
     print(f"K1f ({b},{t},{F}): kernel {k1f_ms:.3f} ms, plain "
           f"{k1f_plain:.1f} ms, bound {k1f_b[0]:.5f} ms ({k1f_b[1]}), "
-          f"{fwd / (b * t):.3f} argmax rounds per frame; K2 with a carry: "
-          f"kernel {k2c_ms:.4f} ms, plain {k2c_plain:.1f} ms, bound "
-          f"{k2c_b[0]:.5f} ms ({k2c_b[1]})")
+          f"{fwd / (b * t):.3f} argmax rounds per frame")
     rec["prune_fwd_carry"] = dict(max_abs_err=worst, ms=k1f_ms,
                                   plain_ms=k1f_plain, bound_ms=k1f_b[0],
                                   bound_by=k1f_b[1], library_ms=None,
                                   rounds_per_frame=fwd / (b * t),
                                   empty_ms=empty_ms, dense_ms=dense_ms)
-    rec.setdefault("hpf_scan", {}).update(carry_ms=k2c_ms,
-                                          carry_plain_ms=k2c_plain,
-                                          carry_bound_ms=k2c_b[0])
 
 
 def prune_on_real(torch, rec: dict, audio: np.ndarray, lens: np.ndarray,
@@ -608,6 +783,7 @@ def stage_breakdown(torch, batch: np.ndarray, lens: np.ndarray) -> dict:
     from audfprint_torch.ops.config import PipelineConfig
     from audfprint_torch.ops import cuda_peaks as CP
     from audfprint_torch.ops import landmarks as L
+    from audfprint_torch.ops import peaks as PK
     from audfprint_torch.ops import pipeline as pipe
     from audfprint_torch.ops import spectro as SP
 
@@ -618,9 +794,15 @@ def stage_breakdown(torch, batch: np.ndarray, lens: np.ndarray) -> dict:
     nf = pipe.frame_count_device(ln, cfg)
     white = SP.whitened_logmag(a, nf, cfg)
     bins, valid = CP.find_peaks_slots_fused(white, nf, cfg)
+    y = SP.hpf(white, cfg)[0]
+    gtab = CP._bump_table(torch.as_tensor(PK.gauss_vector(cfg), device=dev),
+                          y.shape[2])
     out = {
         "spectrogram": cuda_ms(lambda: SP.whitened_logmag(a, nf, cfg), 3),
         "hpf_K2": cuda_ms(lambda: SP.hpf(white, cfg), 3),
+        "envelope_seeds": cuda_ms(lambda: (PK.head_envelope(y, nf, gtab),
+                                           PK.tail_envelope(y, nf, gtab)), 3),
+        "prune_prologue": cuda_ms(lambda: CP.prune_inputs(white, nf, cfg), 3),
         "prune_prologue+K1+slots": cuda_ms(
             lambda: CP.find_peaks_slots_fused(white, nf, cfg), 3),
         "slots_to_hashes": cuda_ms(

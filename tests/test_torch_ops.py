@@ -20,6 +20,7 @@ from audfprint_tpu.ops import spectro as SPj  # noqa: E402
 from audfprint_tpu.ops.config import PipelineConfig  # noqa: E402
 from audfprint_torch.ops import _build  # noqa: E402
 from audfprint_torch.ops import cuda_peaks as CP  # noqa: E402
+from audfprint_torch.ops import ftz as FTZ  # noqa: E402
 from audfprint_torch.ops import landmarks as L  # noqa: E402
 from audfprint_torch.ops import peaks as PK  # noqa: E402
 from audfprint_torch.ops import pipeline as pipe  # noqa: E402
@@ -68,13 +69,23 @@ def test_whitened_logmag_within_tolerance(audio_5s):
                                    atol=5e-3, rtol=1e-3)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_hpf_bit_exact(seed):
+# (seed, B, T, F): the main shape, then K2's edge shapes (ragged and
+# padded widths, the widest, B * F below 32, no frame, one frame, fewer
+# frames than one box, a row ending inside a box)
+HPF_CASES = [(0, 3, 64, 256), (1, 3, 64, 256), (2, 2, 40, 200),
+             (3, 2, 40, 258), (4, 1, 40, 20), (5, 1, 30, 1024),
+             (6, 2, 0, 256), (7, 2, 1, 256), (8, 3, 5, 256), (9, 1, 300, 256)]
+
+
+@pytest.mark.parametrize("seed,B,T,F", HPF_CASES)
+def test_hpf_bit_exact(seed, B, T, F):
     rng = np.random.default_rng(seed)
-    x = (rng.standard_normal((3, 64, 256)) * 4.0).astype(np.float32)
-    want = np.asarray(SPj.hpf(jnp.asarray(x), CFG))
-    got = SP.hpf(_t(x), CFG)[0].numpy()
-    assert np.array_equal(got, want)
+    x = (rng.standard_normal((B, T, F)) * 4.0).astype(np.float32)
+    cfg = CFG._replace(n_fft=2 * F)          # the JAX scan starts at (B, F)
+    want = np.asarray(SPj.hpf(jnp.asarray(x), cfg))
+    got = SP.hpf(_t(x), cfg)[0].numpy()
+    assert got.shape == want.shape == (B, T, F)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 def _round_f32(exact: Fraction) -> np.float32:
@@ -99,7 +110,7 @@ def test_fma_f32_single_rounding():
         np.float32)
     c = rng.standard_normal(n).astype(np.float32)
     c[: n // 2] = -(a[: n // 2] * b[: n // 2])     # cancellation cases
-    got = SP.fma_f32(_t(a), _t(b), _t(c)).numpy()
+    got = FTZ.fma(_t(a), _t(b), _t(c)).numpy()
     want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y))
                                 + Fraction(float(z)))
                      for x, y, z in zip(a, b, c)], np.float32)
@@ -261,11 +272,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_k2_matches_plain_on_card(cuda_device):
-    x = torch.randn((4, 300, 256), generator=torch.Generator().manual_seed(0))
+@pytest.mark.parametrize("B,T,F", [(4, 300, 256), (2, 700, 200),
+                                   (2, 700, 258), (1, 300, 20),
+                                   (2, 600, 1024), (2, 1, 256), (3, 5, 256),
+                                   (2, 8191, 256), (256, 1535, 256)])
+def test_k2_matches_plain_on_card(cuda_device, B, T, F):
+    x = torch.randn((B, T, F), generator=torch.Generator().manual_seed(0))
     got = SP.hpf(x.to(cuda_device), CFG)[0]
     want = SP.hpf_plain(x.to(cuda_device), CFG)[0]
-    assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
