@@ -1,4 +1,4 @@
-"""Command-line interface (port of audfprint_tpu/cli.py, single device).
+"""Command-line interface (port of audfprint_tpu/cli.py).
 
 Same commands (new | add | precompute | merge | newmerge | match | list |
 remove | warmup), same flags and defaults, same output lines.  Ingest and
@@ -6,11 +6,16 @@ match run batched on one device with the host HashTable store and the host
 merge; `--device-store` keeps the table on the device during new/add
 (models/ingest.py), and WAVs longer than `--stream-above` seconds are
 analysed in chunks of `--stream-chunk` frames (models/streaming.py).
+`--ndev N` shards the table by bucket range over N shards, placed round-
+robin on the local devices (several on one card when it has fewer): new /
+add route every hash to its shard (the device store), match votes after a
+hit exchange, merge / newmerge replay the sources into the sharded table;
+all give the --ndev 1 results bit for bit.  Unset, --ndev is the number of
+local devices: the single-device paths on one card.
 `match` also serves `--windowed` (broadcast monitoring), `--speed-sweep`,
 `--listen` (a stdin serving loop) and the `-I`/`-J`/`--sonify`
 diagnostics; `--profile DIR` writes a torch.profiler trace; `--idbits`
-past 32 - maxtimebits makes a wide table.  Only `--ndev > 1` is not
-ported: it exits with status 2 and a message pointing at ROADMAP.md.
+past 32 - maxtimebits makes a wide table.
 
 The device is a keyword of `main` (CUDA by default), so tests can drive
 the CLI on the CPU: `main(argv, device="cpu")`.
@@ -95,7 +100,9 @@ def make_parser() -> argparse.ArgumentParser:
     a("--batchsize", type=int, default=16,
       help="files analyzed per device batch")
     a("--ndev", type=int, default=None,
-      help="devices for store/match (only 1 is ported)")
+      help="table shards for store/match/merge, placed round-robin on the "
+           "local devices (default: one per device; 1 = single-device "
+           "paths; results are identical at any value)")
     a("--idbits", type=int, default=0,
       help="track-id bits of the entry packing (0 = the reference's "
            "32 - maxtimebits). idbits + maxtimebits > 32 switches to "
@@ -177,6 +184,8 @@ def setup_matcher(args, device) -> Matcher:
                    illustrate=args.illustrate,
                    illustrate_hpf=args.illustrate_hpf,
                    sonify=args.sonify,
+                   # unset --ndev = auto: one shard per local device
+                   ndev=args.ndev if args.ndev is not None else 0,
                    device=device)
 
 
@@ -255,13 +264,70 @@ def _decode_many(analyzer: Analyzer, names: list, ncores, report):
     return [results[i] for i in range(len(names))]
 
 
-def do_merge(ht: HashTable, names: list, report, stages: Stages) -> None:
-    """CLI merge/newmerge: the vectorised host merge, source by source."""
+def _ingest_device_store(ht: HashTable, args, report, analyzer):
+    """The fused device ingest for new/add (models/ingest.DeviceIngest):
+    sharded, with every hash routed to its shard, when --ndev resolves to
+    more than 1, on one device when --device-store is set.  None (the host
+    store and a two-stage fingerprint) on one device without
+    --device-store, or for a table the shards do not divide."""
+    from audfprint_torch.parallel import sharded
+    ndev = sharded.resolve_ndev(args.ndev, analyzer.device)
+    if ndev <= 1 and not getattr(args, "device_store", False):
+        return None
+    try:
+        return DeviceIngest(ht, analyzer, max(1, ndev))
+    except ValueError as e:
+        report(f"Note: {e}; using host store")
+        return None
+
+
+def do_merge(ht: HashTable, names: list, args, report, stages: Stages,
+             device=None) -> None:
+    """CLI merge/newmerge.
+
+    With --ndev > 1 the merge runs as resharding on the mesh: one table
+    upload, every source's entry stream replayed through the sharded
+    deterministic reservoir, one download.  Bit-identical to the chained
+    host merge: the replay continues from the true-pressure counts, synced
+    again from the host after every source, so a source's own bucket
+    overflow never skews the next source's slot decisions (the rule
+    HashTable.merge applies).  One device, or a table the shards do not
+    divide, takes the vectorised host merge."""
+    from audfprint_torch.parallel import sharded
+    device = resolve_device(device)
+    ndev = sharded.resolve_ndev(args.ndev, device)
+    mesh = None
+    if ndev > 1 and names:
+        try:
+            mesh = sharded.make_mesh(ndev, sharded.mesh_devices(device))
+            with stages.time("upload"):
+                table, counts, tcfg = sharded.upload_sharded(ht, mesh)
+            merge_fn = sharded.sharded_merge_fn(mesh, tcfg)
+        except ValueError as e:
+            report(f"Note: {e}; using host merge")
+            mesh = None
+    if mesh is None:
+        for name in names:
+            other = HashTable(name)
+            with stages.time("merge"):
+                ht.merge(other)
+            report(f"merged {name} "
+                   f"({sum(1 for n in other.names if n)} files)")
+        return
     for name in names:
         other = HashTable(name)
-        with stages.time("merge"):
-            ht.merge(other)
+        idoffset = ht._merge_meta(other)
+        hs, es, vs = sharded.entry_streams(other, id_offset=idoffset)
+        if len(hs):
+            with stages.time("merge"):
+                merge_fn(table, counts, hs, es, vs)
+        ht._merge_counts(other)
+        # the true combined pressure, before the next source
+        counts = sharded.shard_rows(
+            mesh, np.ascontiguousarray(ht.counts, np.int32))
         report(f"merged {name} ({sum(1 for n in other.names if n)} files)")
+    with stages.time("download"):
+        ht.table = sharded.gather_sharded(mesh, table).view(ht.table.dtype)
 
 
 def _decode_chunk(analyzer: Analyzer, args, report, chunk: list) -> list:
@@ -360,13 +426,14 @@ def do_ingest(ht: HashTable, analyzer: Analyzer, names: list, args,
               report, stages: Stages) -> tuple[int, float]:
     """Batched analyze + store; returns (n_files, total_dur).
 
-    With --device-store each chunk is one fused fingerprint + store pass on
-    the device and one small counts fetch (models/ingest.DeviceIngest; the
-    hashes never reach the host); otherwise the fingerprints come to the
-    host and go into the host table."""
+    With a device store (--ndev > 1, or --device-store on one device) each
+    chunk is one fused fingerprint + store pass on the device and one small
+    counts fetch (models/ingest.DeviceIngest; the hashes never reach the
+    host); otherwise the fingerprints come to the host and go into the host
+    table."""
     tot_dur = 0.0
     n_done = 0
-    store = DeviceIngest(ht, analyzer) if args.device_store else None
+    store = _ingest_device_store(ht, args, report, analyzer)
     if args.skip_existing:
         present = {n for n in ht.names if n is not None}
         for n in names:
@@ -666,10 +733,6 @@ def main(argv=None, device=None) -> int:
     cmd = args.command
     if args.shifts == 0:
         args.shifts = 1
-    if args.ndev not in (None, 1):
-        print("audfprint_torch: --ndev > 1 is not yet ported; see ROADMAP.md "
-              "(python -m audfprint_tpu has it)", file=sys.stderr)
-        return 2
     if args.windowed > 0 and args.speed_sweep > 0:
         # the sweep needs decoded samples per variant; windows are sliced
         # in the hash domain after one fingerprint pass
@@ -729,7 +792,7 @@ def main(argv=None, device=None) -> int:
                 n_files, tot_dur = do_match(ht, analyzer, matcher, names,
                                             args, report, stages)
         elif cmd in ("merge", "newmerge"):
-            do_merge(ht, names, report, stages)
+            do_merge(ht, names, args, report, stages, device)
             with stages.time("save"):
                 ht.save(args.dbase)
         elif cmd == "warmup":

@@ -105,6 +105,33 @@ def get_hits_local(table: torch.Tensor, counts: torch.Tensor,
     return ids, dts, hvalid
 
 
+def build_hpi_plane(table: torch.Tensor, hpi: torch.Tensor,
+                    cfg: TableConfig) -> torch.Tensor:
+    """Per-entry hashesperid plane aligned with the table: plane[b, s] =
+    hpi[id of table[b, s]] (int32), for an int32 or a wide int64 table.
+
+    The vote ranks candidates by raw count / hashesperid.  With the plane
+    each hit's hashesperid comes with its bucket row (gather_plane) and
+    rides the vote's sort as one more payload, instead of a per-hit
+    hpi[id] gather.  A track's hashesperid is fixed once its hashes are
+    stored, so the plane stays valid until the table changes.  Empty slots
+    decode to id 0; their value is never read (hvalid masks them)."""
+    ids = table.long()
+    if not cfg.wide:
+        ids = ids & _M32
+    ids = ids >> cfg.maxtimebits
+    return hpi[torch.clamp(ids, 0, hpi.shape[0] - 1)].to(torch.int32)
+
+
+def gather_plane(plane: torch.Tensor, qhashes: torch.Tensor,
+                 cfg: TableConfig, bucket_lo: int = 0) -> torch.Tensor:
+    """Row-gather a per-entry plane with get_hits_local's own bucket
+    indexing -> (B, Q, depth), slot-aligned with its hit arrays."""
+    n_local = plane.shape[0]
+    qh = (qhashes.long() & ((1 << cfg.hashbits) - 1)) - bucket_lo
+    return plane[torch.clamp(qh, 0, n_local - 1)]
+
+
 _M32 = 0xFFFFFFFF
 _C1 = 0x85EBCA6B
 _C2 = 0xC2B2AE35

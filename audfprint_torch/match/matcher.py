@@ -1,12 +1,13 @@
-"""Matcher: user-facing retrieval (port of audfprint_tpu/match/matcher.py,
-single device).
+"""Matcher: user-facing retrieval (port of audfprint_tpu/match/matcher.py).
 
 match_hashes / match_file / file_match_to_msgs run the compacted-RLE vote
-(match.voting) on `device`.  The device table upload is cached per
-(HashTable, revision), so repeated queries against one DB pay the transfer
-once.  The fused path fingerprints and matches a batch of sample arrays in
-one call (_fused_match_graph) and re-matches the rare row past its static
-caps through the two-stage path, so it never changes results.  The serving
+(match.voting) on `device`, or with `ndev` > 1 on a mesh of that many
+bucket-range shards of the table (parallel/sharded.py; bit-identical
+rows).  The device table upload is cached per (HashTable, revision, ndev),
+so repeated queries against one DB pay the transfer once.  The fused path
+fingerprints and matches a batch of sample arrays in one call
+(_fused_match_graph) and re-matches the rare row past its static caps
+through the two-stage path, so it never changes results.  The serving
 modes ride the batched match: match_hashes_windowed (broadcast monitoring)
 and match_samples_sweep (playback-speed corrections); illustrate_match and
 sonify_match are host diagnostics on top of match_hashes.
@@ -35,8 +36,8 @@ _next_pow2 = P.next_pow2
 _QT_FLOOR = 2048
 
 
-def _fused_match_graph(audio, lengths, table, counts, hpi, pcfg, tcfg,
-                       mcfg, qcap: int) -> torch.Tensor:
+def _fused_match_graph(audio, lengths, table, counts, hpi, hpi_plane, pcfg,
+                       tcfg, mcfg, qcap: int) -> torch.Tensor:
     """Raw audio to packed match results on the device: the compacted
     fingerprint -> its first qcap (t, hash) columns -> the vote.
 
@@ -51,12 +52,17 @@ def _fused_match_graph(audio, lengths, table, counts, hpi, pcfg, tcfg,
     iota = torch.arange(qce, device=th.device)[None]
     qv = iota < torch.clamp(cnt, max=qce)[:, None]
     packed = voting.match_batch_packed(table, counts, hpi, qt, qh, qv,
-                                       tcfg, mcfg, "sorted")
+                                       tcfg, mcfg, "sorted", hpi_plane)
     maxt = torch.where(qv, qt, 0).amax(dim=1) if qce else torch.zeros_like(cnt)
     zero = torch.zeros_like(cnt)
     extra = torch.stack([cnt, maxt.to(cnt.dtype), torch.full_like(cnt, qce),
                          zero, zero, zero, zero], dim=-1)
     return torch.cat([packed, extra[:, None, :].to(packed.dtype)], dim=1)
+
+
+def _shards_per_device(mesh) -> int:
+    """The most local shards of the mesh that share one device."""
+    return max(mesh.devices.count(d) for d in set(mesh.devices))
 
 
 def sweep_factors(pct: float) -> list:
@@ -103,10 +109,6 @@ class Matcher:
                  sonify: bool = False,
                  ndev: int | None = 1,
                  device=None):
-        if ndev not in (None, 1):
-            raise NotImplementedError(
-                "matching over several devices is not yet ported to "
-                "audfprint_torch (ROADMAP.md)")
         self.device = resolve_device(device)
         self.window = window
         self.threshcount = threshcount
@@ -120,11 +122,28 @@ class Matcher:
         self.illustrate = illustrate
         self.illustrate_hpf = illustrate_hpf
         self.sonify = sonify
+        # shards for table-sharded matching: 1 = the single-device cores;
+        # None / 0 = one per local device; N = N shards placed round-robin
+        # on the local devices (on `device` when it is the CPU).  The rows
+        # are bit-identical at any ndev.
+        self.ndev = ndev
         self._dev = None          # (weakref to ht, revision) -> device state
+        self._fallback_dev = None
 
     # Device-memory budget for one voting call; None = derive from the
     # device on first use.  Set it to split batches on small devices.
     mem_budget_bytes: int | None = None
+
+    # Per-entry hashesperid plane for the sorted core's candidate ranking
+    # (DT.build_hpi_plane): one more table-shaped int32 buffer, built once
+    # per staged table, replaces the per-batch hashesperid[id] gather of
+    # every hit.  None = auto, which leaves it off; True builds it.
+    use_hpi_plane: bool | None = None
+
+    # Pin the voting core ("hist" | "sorted"); None = the sorted core.
+    # Both give the same rows; the histogram core's buffers scale with
+    # search_depth x (maxtime + qt_cap) per query row.
+    force_core: str | None = None
 
     # Pin the fused path's static query-hash cap (None = estimate per
     # bucket from density); a low cap only re-routes rows two-stage.
@@ -132,20 +151,52 @@ class Matcher:
 
     # -- device cache -----------------------------------------------------
 
+    def _resolved_ndev(self, ht) -> int:
+        from audfprint_torch.parallel import sharded
+        n = sharded.resolve_ndev(self.ndev, self.device)
+        if n > 1 and (1 << ht.hashbits) % n:
+            if self.verbose and getattr(self, "_ndev_noted", None) != n:
+                self._ndev_noted = n      # note once, not per batch
+                print(f"Note: hashbits={ht.hashbits} table not divisible "
+                      f"over {n} devices; matching single-device")
+            return 1
+        return n
+
     def _device_state(self, ht):
-        """(table, counts, hpi, tcfg, ncap) on the device, cached on a weak
-        reference to the HashTable plus its mutation counter."""
+        """(table, counts, hpi, tcfg, ncap, mesh, plane) on the device(s),
+        cached on a weak reference to the HashTable plus its mutation
+        counter and the shard count.  With a mesh, table, counts and plane
+        are lists of the local shards' tensors."""
         rev = getattr(ht, "rev", None)
+        ndev = self._resolved_ndev(ht)
         if self._dev is None or self._dev[0]() is not ht \
-                or self._dev[1] != rev:
+                or self._dev[1] != (rev, ndev):
             ncap = _next_pow2(max(1, len(ht.names)), 256)
             hpi = np.zeros(ncap, np.int32)
             hpi[: len(ht.hashesperid)] = np.minimum(ht.hashesperid,
                                                     2**31 - 1)
-            table, counts, tcfg = DT.table_to_device(ht, self.device)
-            self._dev = (weakref.ref(ht), rev, table, counts,
-                         torch.as_tensor(hpi, device=self.device), tcfg, ncap)
+            if ndev > 1:
+                from audfprint_torch.parallel import sharded
+                mesh = sharded.make_mesh(
+                    ndev, sharded.mesh_devices(self.device))
+                table, counts, tcfg = sharded.upload_sharded(ht, mesh)
+                hpi_dev = torch.as_tensor(hpi, device=mesh.devices[0])
+                plane = None
+                if self.use_hpi_plane:
+                    plane = [DT.build_hpi_plane(t, h, tcfg) for t, h in
+                             zip(table, mesh.replicate(hpi_dev))]
+            else:
+                mesh = None
+                table, counts, tcfg = DT.table_to_device(ht, self.device)
+                hpi_dev = torch.as_tensor(hpi, device=self.device)
+                plane = self._maybe_hpi_plane(table, hpi_dev, tcfg)
+            self._dev = (weakref.ref(ht), (rev, ndev), table, counts,
+                         hpi_dev, tcfg, ncap, mesh, plane)
         return self._dev[2:]
+
+    def _maybe_hpi_plane(self, table, hpi_dev, tcfg):
+        return (DT.build_hpi_plane(table, hpi_dev, tcfg)
+                if self.use_hpi_plane else None)
 
     # -- core -------------------------------------------------------------
 
@@ -159,23 +210,49 @@ class Matcher:
         _free, total = torch.cuda.mem_get_info(self.device)
         return min(max(1 << 28, total // 3), 8 << 30)
 
-    def _sorted_bytes_per_row(self, tcfg, Q: int) -> int:
+    def _sorted_bytes_per_row(self, tcfg, Q: int, mesh=None) -> int:
         """Footprint of the sorted core per query row, in int64 hit-domain
         arrays (Q * depth * 8 bytes each).  The arrays live at its peak,
         counted on the CPU by tests/test_torch_vote_memory.py, are at most
         12 for the approximate count, 17 with exact counting, and 4 more
         with the time range; each budget leaves 4 to spare for a sort's
-        scratch on the card."""
+        scratch on the card (the plane's int32 payload fits in them).  On a
+        mesh every shard gathers its hits for all rows before the exchange
+        and holds its exchanged slice after it, one array per operand each
+        time, while the votes run one shard after another: shards that
+        share a device add 2 arrays per operand each."""
         units = (16 + (5 if self.exact_count else 0)
                  + (4 if self.find_time_range else 0))
+        if mesh is not None:
+            units += (2 * _shards_per_device(mesh)
+                      * (1 + self.find_time_range + bool(self.use_hpi_plane)))
         return units * Q * tcfg.depth * 8
 
-    def sub_batch(self, B: int, tcfg, Q: int) -> int:
+    def _voting_bytes_per_row(self, tcfg, qt_cap: int, Q: int = 0,
+                              mesh=None) -> int:
+        """Footprint of the histogram core per query row: its (SD + 1) x
+        (maxtime + qt_cap) int32 bin-domain buffers, of which at most 3
+        are live at once for the approximate count and 4 with exact
+        counting (counted on the CPU by tests/test_torch_vote_memory.py;
+        one more is budgeted for scratch), the (SD + 1) x qt_cap pair of
+        the time range, and 12 int64 hit-domain arrays.  Shards of a mesh
+        that share a device hold their buffers at the same time."""
+        SD = self.search_depth
+        nbins = tcfg.maxtime + qt_cap
+        per = (5 if self.exact_count else 4) * (SD + 1) * (nbins + 8) * 4
+        if self.find_time_range:
+            per += 2 * (SD + 1) * qt_cap * 4
+        per += 12 * Q * tcfg.depth * 8
+        return per * (_shards_per_device(mesh) if mesh is not None else 1)
+
+    def sub_batch(self, B: int, tcfg, Q: int, per_row: int | None = None
+                  ) -> int:
         """Rows per voting call for B query rows of Q hashes: the memory
         envelope only ever splits the batch (power-of-two sub-batches),
         never the query."""
-        cap = max(1, self._budget_bytes()
-                  // max(1, self._sorted_bytes_per_row(tcfg, Q)))
+        if per_row is None:
+            per_row = self._sorted_bytes_per_row(tcfg, Q)
+        cap = max(1, self._budget_bytes() // max(1, per_row))
         bsub = _next_pow2(B)
         if bsub > cap:
             bsub = 1 << max(0, cap.bit_length() - 1)
@@ -198,17 +275,48 @@ class Matcher:
         return self.match_hashes_batch(ht, [np.asarray(hashes)])[0]
 
     def match_hashes_batch(self, ht, hash_lists) -> list:
-        table, counts, hpi, tcfg, ncap = self._device_state(ht)
+        (table, counts, hpi, tcfg, ncap, mesh,
+         hpi_plane) = self._device_state(ht)
         B = len(hash_lists)
         maxn = max([1] + [len(h) for h in hash_lists])
         Q = _next_pow2(maxn, 128)
         maxt = max([1] + [int(h[:, 0].max()) + 1 for h in hash_lists
                           if len(h)])
         qt_cap = _next_pow2(maxt, _QT_FLOOR)
-        bsub = self.sub_batch(B, tcfg, Q)
-        per_row = self._sorted_bytes_per_row(tcfg, Q)
+        # the sorted core everywhere: its memory is independent of maxtime
+        # and query length, so the envelope only ever splits the batch; on
+        # a mesh the same vote runs after the hit exchange.  force_core
+        # pins the histogram core (the equivalence reference).
+        core = self.force_core or "sorted"
+        if core not in ("sorted", "hist"):
+            raise ValueError(f"unknown voting core {core!r}")
+        if mesh is not None and core == "hist" and self._voting_bytes_per_row(
+                tcfg, qt_cap, Q, mesh) > self._budget_bytes():
+            # a query too long for even one row's histogram buffers on the
+            # mesh drops to one device (bit-identical); that device's
+            # state is cached per table revision
+            if self.verbose:
+                print("Note: query exceeds the sharded voting memory "
+                      "envelope; matching this batch single-device")
+            rev = getattr(ht, "rev", None)
+            fb = self._fallback_dev
+            if fb is None or fb[0]() is not ht or fb[1] != rev:
+                table, counts, tcfg = DT.table_to_device(ht, self.device)
+                hpi = hpi.to(self.device)
+                hpi_plane = self._maybe_hpi_plane(table, hpi, tcfg)
+                self._fallback_dev = (weakref.ref(ht), rev, table, counts,
+                                      tcfg, hpi, hpi_plane)
+            else:
+                table, counts, tcfg, hpi, hpi_plane = fb[2:]
+            mesh = None
+            core = "sorted"
+        if core == "hist":
+            per_row = self._voting_bytes_per_row(tcfg, qt_cap, Q, mesh)
+        else:
+            per_row = self._sorted_bytes_per_row(tcfg, Q, mesh)
+        bsub = self.sub_batch(B, tcfg, Q, per_row)
         if bsub < B and self.verbose:
-            print(f"Note: using the sorted voting core, "
+            print(f"Note: using the {core} voting core, "
                   f"splitting {B} queries into sub-batches of {bsub} "
                   f"(voting buffers ~{per_row >> 20} MiB/query at "
                   f"qt_cap={qt_cap}, search_depth={self.search_depth})")
@@ -218,12 +326,14 @@ class Matcher:
             pad = bsub - len(chunk)
             chunk += [np.zeros((0, 2), np.int32)] * pad
             rows = self._match_padded(table, counts, hpi, tcfg, ncap,
-                                      chunk, Q, qt_cap)
+                                      chunk, Q, qt_cap, core, mesh,
+                                      hpi_plane)
             results.extend(rows[: len(rows) - pad] if pad else rows)
         return results
 
     def _match_padded(self, table, counts, hpi, tcfg, ncap,
-                      hash_lists, Q: int, qt_cap: int) -> list:
+                      hash_lists, Q: int, qt_cap: int, core: str = "sorted",
+                      mesh=None, hpi_plane=None) -> list:
         B = len(hash_lists)
         tt = np.zeros((B, Q), np.int32)
         hh = np.zeros((B, Q), np.int32)
@@ -233,11 +343,32 @@ class Matcher:
             tt[b, : len(h)] = h[:, 0]
             hh[b, : len(h)] = h[:, 1]
             vv[b, : len(h)] = True
-        dev = self.device
-        out = voting.match_batch_packed(
-            table, counts, hpi, torch.as_tensor(tt, device=dev),
-            torch.as_tensor(hh, device=dev), torch.as_tensor(vv, device=dev),
-            tcfg, self._mcfg(qt_cap, ncap)).cpu().numpy()
+        mcfg = self._mcfg(qt_cap, ncap)
+        if mesh is None:
+            dev = self.device
+            out = voting.match_batch_packed(
+                table, counts, hpi, torch.as_tensor(tt, device=dev),
+                torch.as_tensor(hh, device=dev),
+                torch.as_tensor(vv, device=dev), tcfg, mcfg, core,
+                hpi_plane if core == "sorted" else None)
+        elif core == "sorted":
+            from audfprint_torch.parallel import sharded
+            # the RLE exchange splits the batch axis over the mesh: pad B
+            # to a multiple of ndev with empty rows, dropped below
+            pad = -B % mesh.size
+            if pad:
+                tt, hh, vv = (np.concatenate(
+                    [a, np.zeros((pad, Q), a.dtype)]) for a in (tt, hh, vv))
+            fn = sharded.sharded_match_rle_packed_cached(
+                mesh, tcfg, mcfg, hpi_plane is not None)
+            args = (table, counts, hpi) + (
+                (hpi_plane,) if hpi_plane is not None else ())
+            out = fn(*args, tt, hh, vv)[:B]
+        else:
+            from audfprint_torch.parallel import sharded
+            out = sharded.sharded_match_packed_cached(mesh, tcfg, mcfg)(
+                table, counts, hpi, tt, hh, vv)
+        out = out.cpu().numpy()
         return [out[b, : int(out[b, :, 6].sum()), :6].astype(np.int64)
                 for b in range(B)]
 
@@ -297,10 +428,17 @@ class Matcher:
 
     def match_samples_fused_async(self, analyzer, ht, signals: list):
         """Queue the fused fingerprint+match for a list of sample arrays.
-        Returns a handle for match_fused_resolve, or None when the groups'
-        voting buffers together pass the memory budget (the caller then
-        takes the two-stage path)."""
-        table, counts, hpi, tcfg, ncap = self._device_state(ht)
+        Returns a handle for match_fused_resolve, or None when the
+        histogram core is pinned or the groups' voting buffers together
+        pass the memory budget (the caller then takes the two-stage path).
+        On a mesh each group goes through
+        sharded.sharded_fused_match_cached: every shard fingerprints its
+        slice of the batch, then the hit exchange and the vote; same
+        readback row, same rows as the two-stage mesh path."""
+        (table, counts, hpi, tcfg, ncap, mesh,
+         hpi_plane) = self._device_state(ht)
+        if self.force_core == "hist":
+            return None
         mcfg = self._mcfg(_QT_FLOOR, ncap)
         budget = self._budget_bytes()
         groups = analyzer.stage_groups(signals)
@@ -314,17 +452,32 @@ class Matcher:
                 int(dur * analyzer.density * 1.5) + 64, 128)
             # every group is queued before any resolves, so their buffers
             # can be live together: budget the sum
-            footprint += self._sorted_bytes_per_row(tcfg, qcap) * len(lens)
+            footprint += (self._sorted_bytes_per_row(tcfg, qcap, mesh)
+                          * len(lens))
             if footprint > budget:
                 return None
             qcaps.append(qcap)
         dev = self.device
         outs = []
         for (idxs, batch, lens), qcap in zip(groups, qcaps):
-            out = _fused_match_graph(
-                torch.as_tensor(batch, device=dev),
-                torch.as_tensor(lens, device=dev), table, counts, hpi,
-                analyzer.config, tcfg, mcfg, qcap)
+            if mesh is not None:
+                from audfprint_torch.parallel import sharded
+                pad = -batch.shape[0] % mesh.size
+                if pad:
+                    batch = np.concatenate(
+                        [batch, np.zeros((pad, batch.shape[1]), batch.dtype)])
+                    lens = np.concatenate([lens, np.zeros(pad, lens.dtype)])
+                fn = sharded.sharded_fused_match_cached(
+                    mesh, analyzer.config, tcfg, mcfg, qcap,
+                    hpi_plane is not None)
+                args = (table, counts, hpi) + (
+                    (hpi_plane,) if hpi_plane is not None else ())
+                out = fn(*args, batch, lens)
+            else:
+                out = _fused_match_graph(
+                    torch.as_tensor(batch, device=dev),
+                    torch.as_tensor(lens, device=dev), table, counts, hpi,
+                    hpi_plane, analyzer.config, tcfg, mcfg, qcap)
             outs.append((idxs, out))
         return (len(signals), outs, signals)
 

@@ -86,9 +86,29 @@ Phases (any failure exits non-zero before the result line):
      2^18 + 769 i equal the host HashTable bit for bit, and the 64
      queries match at rank 0 with their sparse ids through the fused path
 
-Each path of phases 6-8 and 10-13 runs with the kernels' launch counts
-set to 0 just before it and read just after; the kernel record lists them
-by path.
+ 14. the vote's rows on the card against the numpy oracle
+     (audfprint_torch/oracle/match.py), bit for bit: phase 6's 64 queries
+     through Matcher in the default mode (two-stage and fused), with
+     exact_count, with find_time_range, and with both plus sort_by_time,
+     on the 2^20 x 100 table; in phase 11, a seeded sample of 96 of the
+     windowed rows
+ 15. the sharded path on a mesh of 4 logical shards of the one card
+     (parallel/): ShardedStore over the 1,000 tracks' hashes equals the
+     host store; Matcher(ndev=4) rows equal Matcher(ndev=1) rows with the
+     sorted and the hist core, the hpi plane on and off, in three modes;
+     the single-device hist core equals the sorted core; the fused mesh
+     path equals the two-stage one; DeviceIngest(ndev=4) equals the host
+     store, again with a routing cap that forces the overflow replay;
+     sharded_merge_fn equals HashTable.merge; dp_fingerprint_fn equals
+     fingerprint_batch; the config-2 match batch timed with and without
+     the plane.  Then a process boundary: two processes of two shards each
+     over gloo, both on the card, store 300 tracks' hashes and match 16
+     queries; their table and rows equal the single-device ones.  Phase 9
+     also runs new / add / match / merge with --ndev 4 against --ndev 1
+
+Each path of phases 6-8, 10-13 and 15 runs with the kernels' launch
+counts set to 0 just before it and read just after; the kernel record
+lists them by path.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON record and the one before that the nvidia-smi line.
 The script imports no JAX.
@@ -105,6 +125,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -912,6 +933,422 @@ def phase_main_path(torch, rec: dict) -> dict:
             ctx, t_fp + t_store)
 
 
+# the modes the vote's rows are held in against the oracle: Matcher (and
+# MatcherParams) keywords
+VOTE_MODES = [
+    ("default", {}),
+    ("exact_count", {"exact_count": True, "max_returns": 4}),
+    ("find_time_range", {"find_time_range": True}),
+    ("exact_count + find_time_range + sort_by_time",
+     {"exact_count": True, "find_time_range": True, "sort_by_time": True,
+      "max_returns": 4}),
+]
+
+
+def _rows_differing(got: list, want: list) -> list:
+    """Indices whose (k, 6) rows differ, in value or in number (the
+    seventh column, the valid flag, is the number of rows)."""
+    return [i for i, (g, w) in enumerate(zip(got, want))
+            if g.shape != w.shape or not np.array_equal(g, w)]
+
+
+def oracle_rows(ht, hash_lists: list, kw: dict) -> list:
+    from audfprint_torch import params as P
+    from audfprint_torch.oracle import match as om
+
+    mp = P.MatcherParams(**kw)
+    return [om.match_hashes(ht, h, mp) for h in hash_lists]
+
+
+def phase_vote_rows(torch, ctx, dev) -> dict:
+    """The card's vote rows against the numpy oracle's at config-2 scale,
+    bit for bit, in VOTE_MODES; the default mode through the fused path
+    too."""
+    from audfprint_torch.match.matcher import Matcher
+
+    ht, an, queries = ctx["ht"], ctx["an"], ctx["queries"]
+    qh = an.samples_batch2hashes(queries)
+    ctx["qhashes"] = qh
+    n_rows = 0
+    for name, kw in VOTE_MODES:
+        m = Matcher(device=dev, verbose=0, **kw)
+        got = m.match_hashes_batch(ht, qh)
+        want = oracle_rows(ht, qh, kw)
+        bad = _rows_differing(got, want)
+        require(not bad, f"vote rows differ from the oracle in mode {name}: "
+                         f"queries {bad[:8]}, e.g. card {got[bad[0]]} oracle "
+                         f"{want[bad[0]]}" if bad else "")
+        n = sum(len(w) for w in want)
+        n_rows += n
+        if not kw:
+            fused, _nh = m.match_samples_fused(an, ht, queries)
+            bad = _rows_differing(fused, want)
+            require(not bad, f"fused-path rows differ from the oracle: "
+                             f"queries {bad[:8]}")
+            n_rows += n
+        print(f"vote rows, mode {name}: {len(qh)} queries, {n} rows equal "
+              f"the oracle's bit for bit"
+              + ("" if kw else " (two-stage and fused)"))
+        del m
+    print(f"vote rows against the oracle: {n_rows} rows compared in "
+          f"{len(VOTE_MODES)} modes, 0 differ")
+    return {"vote_rows_compared": n_rows}
+
+
+def _timed(torch, dev, fn, warm: bool = True):
+    """(result, wall seconds, device peak MiB above resident) of fn(), after
+    one warm-up call."""
+    if warm:
+        fn()
+    base = _reset_peak(torch, dev)
+    t0 = time.time()
+    out = fn()
+    _sync(torch, dev)
+    return out, time.time() - t0, _peak_mib(torch, dev, base)
+
+
+def _tables_equal(a, b) -> bool:
+    return (np.array_equal(a.table, b.table)
+            and np.array_equal(a.counts, b.counts)
+            and np.array_equal(a.hashesperid, b.hashesperid)
+            and a.names == b.names)
+
+
+def phase_sharded(torch, rec, ctx, dev, ndev: int = 4, chunk: int = 256,
+                  replay_cap: int = 1024) -> dict:
+    """The sharded path on `ndev` logical shards of the one card, each
+    result held against its single-device counterpart; records each path's
+    wall time and device peak."""
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.match.matcher import Matcher
+    from audfprint_torch.models.analyzer import Analyzer
+    from audfprint_torch.models.ingest import (DeviceIngest,
+                                               sharded_fused_ingest_fn)
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import pipeline as pipe
+    from audfprint_torch.ops import spectro as SP
+    from audfprint_torch.parallel import sharded
+
+    ht, an, tracks = ctx["ht"], ctx["an"], ctx["tracks"]
+    hashes, queries, qh = ctx["hashes"], ctx["queries"], ctx["qhashes"]
+    names = [f"track{i}" for i in range(len(tracks))]
+    card = nvidia_smi_line()
+    out: dict = {}
+
+    def record(key, wall, peak, note=""):
+        out[key + "_s"] = wall
+        out[key + "_peak_mib"] = peak
+        print(f"sharded path [{card}] {key}: {wall:.3f} s wall, device peak "
+              f"{peak:.1f} MiB above resident{note}")
+
+    mesh = sharded.make_mesh(ndev, [dev])
+    require(mesh.size == ndev and all(d.type == torch.device(dev).type
+                                      for d in mesh.devices),
+            f"the mesh is not {ndev} shards of {dev}: {mesh}")
+    _counts_zero(SP, CP)
+
+    # ---- the replicated store
+    def store_all():
+        h = HashTable()
+        st = sharded.ShardedStore(h, mesh)
+        for i in range(0, len(hashes), chunk):
+            st.store_chunk(list(zip(names[i: i + chunk],
+                                    hashes[i: i + chunk])))
+        st.finalize()
+        return h
+
+    got, wall, peak = _timed(torch, dev, store_all, warm=False)
+    require(_tables_equal(got, ht), "ShardedStore's table differs from the "
+                                    "host store's")
+    record("sharded_store", wall, peak,
+           f"; {len(hashes)} tracks' hashes, equal to the host store")
+    del got
+
+    # ---- Matcher(ndev) against Matcher(1): cores, plane, modes
+    grid_s: dict = {}
+    for name, kw in VOTE_MODES[:3]:
+        ref_m = Matcher(device=dev, ndev=1, verbose=0, **kw)
+        ref, wall1, peak1 = _timed(torch, dev,
+                                   lambda: ref_m.match_hashes_batch(ht, qh))
+        grid_s[f"{name} | 1 shard, sorted"] = (wall1, peak1)
+        m1h = Matcher(device=dev, ndev=1, verbose=0, **kw)
+        m1h.force_core = "hist"
+        rows, wall, peak = _timed(torch, dev,
+                                  lambda: m1h.match_hashes_batch(ht, qh))
+        bad = _rows_differing(rows, ref)
+        require(not bad, f"the single-device hist core differs from the "
+                         f"sorted core in mode {name}: queries {bad[:8]}")
+        grid_s[f"{name} | 1 shard, hist"] = (wall, peak)
+        del ref_m, m1h
+        for core in ("sorted", "hist"):
+            for plane in (False, True):
+                m = Matcher(device=dev, ndev=ndev, verbose=0, **kw)
+                m.force_core = "hist" if core == "hist" else None
+                m.use_hpi_plane = plane
+                rows, wall, peak = _timed(
+                    torch, dev, lambda: m.match_hashes_batch(ht, qh))
+                state = m._device_state(ht)
+                require(state[5] is not None and state[5].size == ndev
+                        and (state[6] is not None) == plane,
+                        f"Matcher(ndev={ndev}) did not build its mesh or "
+                        f"plane (plane {plane})")
+                bad = _rows_differing(rows, ref)
+                require(not bad, f"Matcher(ndev={ndev}) rows differ from "
+                                 f"ndev=1: mode {name}, core {core}, plane "
+                                 f"{plane}, queries {bad[:8]}")
+                grid_s[f"{name} | {ndev} shards, {core}, plane "
+                       f"{'on' if plane else 'off'}"] = (wall, peak)
+                del m
+    for key, (wall, peak) in grid_s.items():
+        print(f"sharded path [{card}] match of {len(qh)} queries, {key}: "
+              f"{wall * 1e3:.1f} ms wall, device peak {peak:.1f} MiB above "
+              f"resident; rows equal the single-device sorted core's")
+    out["match_grid_ms"] = {k: v[0] * 1e3 for k, v in grid_s.items()}
+    out["match_grid_peak_mib"] = {k: v[1] for k, v in grid_s.items()}
+
+    # ---- the config-2 match batch with and without the plane, in turns
+    pm = {False: Matcher(device=dev, verbose=0),
+          True: Matcher(device=dev, verbose=0)}
+    pm[True].use_hpi_plane = True
+    walls = {False: [], True: []}
+    for m in pm.values():
+        m.match_hashes_batch(ht, qh)
+    for turn in (False, True, True, False, False, True, True, False):
+        _sync(torch, dev)
+        t0 = time.time()
+        r = pm[turn].match_hashes_batch(ht, qh)
+        _sync(torch, dev)
+        walls[turn].append(time.time() - t0)
+    require(pm[True]._device_state(ht)[6] is not None
+            and pm[False]._device_state(ht)[6] is None,
+            "use_hpi_plane did not decide the plane")
+    off_ms, on_ms = (1e3 * float(np.median(walls[k])) for k in (False, True))
+    print(f"hpi plane [{card}] config-2 match batch of {len(qh)} queries "
+          f"(two-stage, sorted core, one device), median of 4 in turns: "
+          f"plane off {off_ms:.2f} ms, plane on {on_ms:.2f} ms (runs off "
+          f"{[round(1e3 * w, 2) for w in walls[False]]}, on "
+          f"{[round(1e3 * w, 2) for w in walls[True]]})")
+    out.update(plane_off_ms=off_ms, plane_on_ms=on_ms)
+    del pm, r
+
+    # ---- the fused mesh path against the two-stage one
+    m = Matcher(device=dev, ndev=ndev, verbose=0)
+    two = m.match_hashes_batch(ht, qh)
+    fused, wall, peak = _timed(
+        torch, dev, lambda: m.match_samples_fused(an, ht, queries))
+    require(fused is not None, "the fused mesh path was not eligible")
+    bad = _rows_differing(fused[0], two)
+    require(not bad and fused[1] == [len(h) for h in qh],
+            f"the fused mesh path differs from the two-stage one: {bad[:8]}")
+    record("fused_mesh_match", wall, peak,
+           f"; {len(queries)} queries, rows equal the two-stage mesh path's")
+    del m
+
+    # ---- the routed ingest, and once more through the overflow replay
+    def ingest_all(cap=None):
+        h = HashTable()
+        ing = DeviceIngest(h, Analyzer(device=dev), ndev)
+        if cap is not None:
+            ing._fn = sharded_fused_ingest_fn(ing.mesh, ing.analyzer.config,
+                                              ing.cfg, cap_override=cap)
+        for i in range(0, len(tracks), chunk):
+            ing.consume_chunk(ing.dispatch_chunk(
+                [(n, "wav", x) for n, x in zip(names[i: i + chunk],
+                                               tracks[i: i + chunk])], print))
+        ing.finalize()
+        return h, ing.replays
+
+    (got, replays), wall, peak = _timed(torch, dev, ingest_all, warm=False)
+    require(_tables_equal(got, ht) and replays == 0,
+            f"DeviceIngest(ndev={ndev}) differs from the host store "
+            f"(replays {replays})")
+    audio = sum(len(x) for x in tracks) / SR
+    record("routed_ingest", wall, peak,
+           f"; {audio / wall:.1f} audio-s/s, equal to the host store, no "
+           f"replay")
+    (got, replays), wall, peak = _timed(
+        torch, dev, lambda: ingest_all(replay_cap), warm=False)
+    require(replays > 0,
+            f"a routing cap of {replay_cap} did not force the replay")
+    require(_tables_equal(got, ht), "the overflow replay's table differs "
+                                    "from the host store's")
+    record("routed_ingest_replayed", wall, peak,
+           f"; routing cap {replay_cap}: {replays} chunks replayed through "
+           f"the replicated store, equal to the host store")
+    del got
+
+    # ---- merge as resharding
+    half = len(hashes) // 2
+    parts = []
+    for lo, hi in ((0, half), (half, len(hashes))):
+        h = HashTable()
+        for i in range(lo, hi):
+            h.store_vectorized(names[i], hashes[i])
+        parts.append(h)
+    ht_a, ht_b = parts
+    table, counts, tcfg = sharded.upload_sharded(ht_a, mesh)
+    merge_fn = sharded.sharded_merge_fn(mesh, tcfg)
+    hs, es, vs = sharded.entry_streams(ht_b, id_offset=len(ht_a.names))
+    _r, wall, peak = _timed(torch, dev,
+                            lambda: merge_fn(table, counts, hs, es, vs),
+                            warm=False)
+    ht_a.merge(ht_b)
+    keep = ht_b.counts <= ht_b.depth
+    require(np.array_equal(sharded.gather_sharded(mesh, table)
+                           .view(np.uint32), ht_a.table)
+            and np.array_equal(sharded.gather_sharded(mesh, counts)[keep],
+                               ht_a.counts[keep]),
+            "sharded_merge_fn differs from HashTable.merge")
+    record("sharded_merge", wall, peak,
+           f"; {len(hs)} entries of {len(hashes) - half} tracks, equal to "
+           f"HashTable.merge")
+    del table, counts, parts, ht_a, ht_b
+
+    # ---- data-parallel fingerprint
+    _idxs, batch, lens = an.stage_groups(tracks[:chunk])[0]
+    whole = pipe.fingerprint_batch(torch.as_tensor(batch, device=dev),
+                                   torch.as_tensor(lens, device=dev),
+                                   an.config)
+    dp = sharded.dp_fingerprint_fn(mesh, an.config)
+    parts, wall, peak = _timed(torch, dev, lambda: dp(batch, lens))
+    require(all(torch.equal(a, b) for a, b in zip(parts, whole)),
+            "dp_fingerprint_fn differs from fingerprint_batch")
+    record("dp_fingerprint", wall, peak,
+           f"; {chunk} x 30 s tracks in {ndev} blocks, equal to one "
+           f"fingerprint_batch bit for bit")
+
+    launches = _counts(SP, CP)
+    print(f"sharded path: launches {launches}")
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+            f"a kernel was not launched on the sharded path: {launches}")
+    rec["_paths"]["sharded"] = launches
+    return {"sharded": out}
+
+
+def _gloo_rank(argv: list) -> int:
+    """One process of phase_process_boundary (python3 chip_smoke.py
+    --gloo-rank RANK NPROC PORT DIR DEVICE): joins the gloo group, holds
+    two logical shards on DEVICE, stores the tracks' hashes through
+    ShardedStore and matches the queries through Matcher over the global
+    mesh; writes its table and rows to DIR."""
+    rank, nproc, port = (int(a) for a in argv[:3])
+    d, device = argv[3], argv[4]
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.match.matcher import Matcher
+    from audfprint_torch.parallel import multihost, sharded
+
+    data = np.load(os.path.join(d, "gloo_data.npz"))
+    cuts = data["cuts"]
+    rows = [data["rows"][a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    n_tracks = int(data["n_tracks"])
+    hashes, qh = rows[:n_tracks], rows[n_tracks:]
+    multihost.initialize(f"localhost:{port}", nproc, rank, backend="gloo",
+                         timeout_s=240)
+    mesh = multihost.global_table_mesh([device] * 2)
+    t0 = time.time()
+    ht = HashTable()
+    st = sharded.ShardedStore(ht, mesh)
+    st.store_chunk([(f"track{i}", h) for i, h in enumerate(hashes)])
+    st.finalize()
+    t_store = time.time() - t0
+    m = Matcher(device=device, ndev=mesh.size, verbose=0,
+                exact_count=True, find_time_range=True, max_returns=4)
+    m.match_hashes_batch(ht, qh)                     # upload, warm
+    _sync(torch, device)
+    t0 = time.time()
+    got = m.match_hashes_batch(ht, qh)
+    _sync(torch, device)
+    t_match = time.time() - t0
+    require(m._device_state(ht)[5].size == 2 * nproc, "no global mesh")
+    np.savez(os.path.join(d, f"gloo_rank{rank}.npz"),
+             table=ht.table, counts=ht.counts, n=[len(r) for r in got],
+             rows=np.concatenate(got) if got else np.zeros((0, 6)))
+    multihost.shutdown()
+    print(f"GLOO_RANK_OK rank={rank} shards={mesh.size} store "
+          f"{t_store:.3f} s match {t_match:.3f} s", flush=True)
+    return 0
+
+
+def phase_process_boundary(torch, ctx, dev, d, nproc: int = 2,
+                           n_tracks: int = 300, n_q: int = 16) -> dict:
+    """Two processes of two shards each over gloo, both on the card: they
+    store n_tracks tracks' hashes and match n_q queries across the process
+    boundary; every rank's table equals the host store's and its rows the
+    single-device rows.  The kernels are built by now, and the ranks
+    fingerprint nothing."""
+    import socket
+
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.match.matcher import Matcher
+
+    hashes = ctx["hashes"][:n_tracks]
+    sel = [i for i, t in enumerate(ctx["qsel"]) if t < n_tracks]
+    qh = [ctx["qhashes"][i] for i in sel][:n_q]
+    qh += ctx["qhashes"][: n_q - len(qh)]        # the rest match nothing
+    rows = list(hashes) + qh
+    np.savez(os.path.join(d, "gloo_data.npz"),
+             rows=np.concatenate(rows),
+             cuts=np.cumsum([0] + [len(r) for r in rows]), n_tracks=n_tracks)
+    ht = HashTable()
+    for i, h in enumerate(hashes):
+        ht.store_vectorized(f"track{i}", h)
+    want = Matcher(device=dev, ndev=1, verbose=0, exact_count=True,
+                   find_time_range=True, max_returns=4).match_hashes_batch(
+        ht, qh)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--gloo-rank",
+         str(r), str(nproc), str(port), d, str(torch.device(dev))], cwd=ROOT,
+        env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=360)[0])
+            except subprocess.TimeoutExpired:
+                outs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0 and f"GLOO_RANK_OK rank={r}" in o,
+                f"gloo rank {r} failed (rc {p.returncode}): {o[-2000:]}")
+        print(o.strip().splitlines()[-1])
+    n_rows = 0
+    for r in range(nproc):
+        got = np.load(os.path.join(d, f"gloo_rank{r}.npz"))
+        require(np.array_equal(got["table"], ht.table)
+                and np.array_equal(got["counts"], ht.counts),
+                f"gloo rank {r}: the sharded store differs from the host "
+                f"store")
+        cuts = np.cumsum([0] + list(got["n"]))
+        rr = [got["rows"][a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+        bad = _rows_differing(rr, want)
+        require(not bad, f"gloo rank {r}: rows differ from the single-device "
+                         f"rows, queries {bad[:8]}")
+        n_rows = sum(len(w) for w in want)
+    top = sum(len(w) > 0 for w in want)
+    print(f"process boundary [{nvidia_smi_line()}]: {nproc} processes x 2 "
+          f"shards over gloo on one card, {n_tracks} tracks stored and "
+          f"{len(qh)} queries matched ({top} with a match, {n_rows} rows) in "
+          f"{wall:.1f} s wall, process start included; every rank's table "
+          f"equals the host store and its rows the single-device rows")
+    return {"gloo_ranks_wall_s": wall}
+
+
 def _jaccard(a: np.ndarray, b: np.ndarray):
     sa = {tuple(r) for r in a.tolist()}
     sb = {tuple(r) for r in b.tolist()}
@@ -1386,8 +1823,20 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
     require(launches["prune_fwd_carry"] > 0 and launches["hpf_scan"] > 0,
             f"the broadcast log did not stream through K1f and K2: "
             f"{launches}")
+    # a seeded sample of the windowed rows against the oracle, bit for bit
+    pick = np.random.default_rng(SEED + 7).choice(
+        len(wins), min(96, len(wins)), replace=False)
+    sample = [wins[i][1] for i in sorted(pick)]
+    got_rows = matcher.match_hashes_batch(ht, sample)
+    want_rows = oracle_rows(ht, sample, {})
+    bad = _rows_differing(got_rows, want_rows)
+    print(f"broadcast: {len(sample)} sampled windows' rows against the "
+          f"oracle: {len(sample) - len(bad)} equal bit for bit "
+          f"({sum(len(w) > 0 for w in want_rows)} of them report a track)")
+    require(not bad, f"windowed rows differ from the oracle: sample {bad[:8]}")
     rec["_paths"]["broadcast_windowed"] = launches
     return {"broadcast_windows": len(wins), "broadcast_wall_s": wall,
+            "broadcast_rows_vs_oracle": len(sample),
             "broadcast_windows_per_s": len(wins) / wall,
             "broadcast_found": len(found), "broadcast_filler_fp": fp_share,
             "broadcast_stream_peak_mib": peak_stream,
@@ -1700,6 +2149,7 @@ def phase_cli() -> dict:
                    and np.array_equal(a.hashesperid, b.hashesperid))
         print(f"CLI new --device-store database equals new's: {same_db}")
         serving = phase_cli_serving(d, db, wavs, songs, query, q, rank0)
+        serving.update(phase_cli_ndev(d, wavs, query, rank0))
     with tempfile.TemporaryDirectory() as d:
         got = golden_session(d, lambda argv: main(argv, device="cuda"))
     with open(os.path.join(ROOT, "tests", "golden", "cli_session.txt")) as f:
@@ -1713,6 +2163,63 @@ def phase_cli() -> dict:
         print(f"  line {i + 1}: golden {a!r}\n           card   {b!r}")
     return {"golden_lines_differing": ndiff, "cli_device_store_same_db":
             same_db, **serving}
+
+
+def phase_cli_ndev(d, wavs, query, rank0, ndev: int = 4) -> dict:
+    """new, add, match and merge with --ndev 4 (four logical shards of the
+    card) as subprocesses: their lines and saved databases equal the
+    --ndev 1 ones, and `new --ndev 4` launches the kernels."""
+    from audfprint_torch.index.hash_table import HashTable
+
+    def lines(text, n):
+        return [ln.replace(f"_n{n}.", "_n.") for ln in text.splitlines()
+                if not ln.startswith("Processed ")]
+
+    outs, launches = {}, {}
+
+    def run_ndev(n):
+        nd = ["--ndev", str(n)]
+        db, dbb = (os.path.join(d, f"{k}_n{n}.pklz") for k in ("nd", "ndb"))
+        metrics = os.path.join(d, f"nd_metrics{n}.json")
+        o = _cli(["new", "-d", db, *nd, "--json-metrics", metrics, *wavs[:2]])
+        with open(metrics) as f:
+            launches[n] = json.load(f)["kernel_launches"]
+        o += _cli(["add", "-d", db, *nd, wavs[2]])
+        o += _cli(["new", "-d", dbb, *nd, wavs[1], wavs[0]])
+        o += _cli(["merge", "-d", db, *nd, dbb])
+        o += _cli(["match", "-d", db, *nd, "-R", "-X", "-x", "3", query])
+        o += _cli(["match", "-d", db, *nd, query])
+        outs[n] = lines(o, n)
+
+    # the two runs side by side: each subprocess spends most of its
+    # time starting up
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        for fut in [ex.submit(run_ndev, n) for n in (1, ndev)]:
+            fut.result()
+    wall = time.time() - t0
+    print(f"CLI new / add / merge / match --ndev {ndev}:\n"
+          + "\n".join(outs[ndev]))
+    require(outs[1] == outs[ndev],
+            f"--ndev {ndev} lines differ from --ndev 1: "
+            f"{[(a, b) for a, b in zip(outs[1], outs[ndev]) if a != b][:4]}")
+    require(any(re.search(rank0, ln) for ln in outs[ndev]),
+            f"no rank-0 Matched line under --ndev {ndev}")
+    for k in ("nd", "ndb"):
+        a, b = (HashTable(os.path.join(d, f"{k}_n{n}.pklz"))
+                for n in (1, ndev))
+        require(np.array_equal(a.table, b.table)
+                and np.array_equal(a.counts, b.counts)
+                and np.array_equal(a.hashesperid, b.hashesperid)
+                and a.names == b.names,
+                f"the --ndev {ndev} database {k} differs from --ndev 1's")
+    require(launches[ndev].get("prune_fwd_bwd", 0) > 0
+            and launches[ndev].get("hpf_scan", 0) > 0,
+            f"new --ndev {ndev} did not launch the kernels: {launches}")
+    print(f"CLI --ndev {ndev}: lines and both saved databases equal --ndev "
+          f"1's; new --ndev {ndev} launches {launches[ndev]} (--ndev 1: "
+          f"{launches[1]}); 12 subprocesses in {wall:.1f} s")
+    return {"cli_ndev_same": True, "cli_ndev_launches": launches[ndev]}
 
 
 def phase_cli_serving(d, db, wavs, songs, query, q, rank0) -> dict:
@@ -1803,6 +2310,8 @@ def phase_cli_serving(d, db, wavs, songs, query, q, rank0) -> dict:
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--gloo-rank":
+        return _gloo_rank(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -1843,8 +2352,12 @@ def main() -> int:
         phase_stream_kernels(torch, rec, dev)
         main_summary, ctx, t_two_stage = phase_main_path(torch, rec)
         summary.update(main_summary)
+        summary.update(phase_vote_rows(torch, ctx, dev))
         summary.update(phase_device_store(torch, rec, ctx["tracks"],
                                           ctx["ht"], t_two_stage, dev))
+        summary.update(phase_sharded(torch, rec, ctx, dev))
+        with tempfile.TemporaryDirectory() as d:
+            summary.update(phase_process_boundary(torch, ctx, dev, d))
         summary.update(phase_config3(torch, rec, dev))
         with tempfile.TemporaryDirectory() as d:
             summary.update(phase_broadcast(torch, rec, ctx, dev, d))

@@ -1,7 +1,7 @@
 """audfprint_torch CLI on the CPU: the golden session byte for byte, the
-port running without JAX in a fresh process, every JAX CLI flag accepted
-(--ndev > 1 refusing with a pointer to ROADMAP.md), and long WAVs
-streaming."""
+port running without JAX in a fresh process, every JAX CLI flag accepted,
+--ndev 8 (new, add, merge, newmerge, match) giving --ndev 1's lines and
+databases, and long WAVs streaming."""
 
 import functools
 import io
@@ -100,18 +100,22 @@ def small_db(tmp_path_factory):
     ["new", "--profile", "trace"]])
 def test_unported_features_exit_nonzero(extra, small_db, capsys,
                                         monkeypatch):
-    """Of the JAX CLI's flags, only --ndev > 1 still refuses (status 2,
-    pointing at ROADMAP.md); warmup, --listen, --windowed, --speed-sweep,
-    -I and --profile, once refused here, now run through the port."""
+    """Every flag of the JAX CLI, once refused here, now runs through the
+    port: warmup, --listen, --windowed, --speed-sweep, -I, --profile, and
+    --ndev 2 (a sharded device store whose database equals the host
+    store's; a sharded match)."""
     d, db, q = small_db
-    if "--ndev" in extra:
-        rc = cli.main([extra[0], "-d", str(d / "nd.pklz"), *extra[1:]],
-                      device="cpu")
-        err = capsys.readouterr().err
-        assert rc == 2
-        assert "--ndev > 1 is not yet ported" in err and "ROADMAP.md" in err
-        return
     files = [q]
+    if extra[:2] == ["new", "--device-store"]:
+        from audfprint_tpu.index.hash_table import HashTable
+        nd = str(d / "nd.pklz")
+        assert cli.main(["new", "-d", nd, "-h", "12", *extra[1:],
+                         str(d / "s0.wav"), str(d / "s1.wav")],
+                        device="cpu") == 0
+        a, b = HashTable(nd), HashTable(db)
+        assert np.array_equal(a.table, b.table) and a.names == b.names
+        assert np.array_equal(a.counts, b.counts)
+        return
     if extra == ["warmup"]:
         extra, files = ["warmup", "--warm-durations", "3",
                         "--batchsize", "2"], []
@@ -208,3 +212,79 @@ def test_matcher_helpers_match_jax():
     assert len(got) == len(want) > 3
     for (t0, s, d), (t0w, sw, dw) in zip(got, want):
         assert (t0, d) == (t0w, dw) and np.array_equal(s, sw)
+
+
+def _lines(capsys):
+    return [ln for ln in capsys.readouterr().out.splitlines()
+            if not ln.startswith("Processed ")]
+
+
+def test_cli_ndev_equals_single_device(tmp_path, capsys):
+    """new, add, merge, newmerge and match (plain and -R -X) with --ndev 8
+    print --ndev 1's lines and save its databases, bucket overflow
+    included (-h 6 -b 2); --json-metrics records the kernels' counts."""
+    from audfprint_tpu.index.hash_table import HashTable
+
+    rng = np.random.default_rng(30)
+    wavs = []
+    for i in range(4):
+        x = synth_audio(rng, dur_sec=4.0, n_tones=40)
+        wavs.append(str(tmp_path / f"s{i}.wav"))
+        audio_write_wav(wavs[-1], x, 11025)
+        if i == 1:
+            audio_write_wav(str(tmp_path / "q.wav"),
+                            x[256 * 20: 256 * 20 + 2 * 11025], 11025)
+    common = ["-h", "6", "-b", "2", "-t", "4096", "-N", "2"]
+    q = str(tmp_path / "q.wav")
+    out = {}
+    for n in (1, 8):
+        def db(k):
+            return str(tmp_path / f"{k}.n{n}.pklz")
+        nd = ["--ndev", str(n), *common]
+        capsys.readouterr()
+        for argv in (["new", "-d", db("a"), *nd, "--json-metrics",
+                      str(tmp_path / f"m{n}.json"), *wavs[:2]],
+                     ["add", "-d", db("a"), *nd, wavs[2]],
+                     ["new", "-d", db("b"), *nd, wavs[3], wavs[0]],
+                     ["merge", "-d", db("a"), *nd, db("b")],
+                     ["newmerge", "-d", db("c"), *nd, db("a"), db("b")],
+                     ["match", "-d", db("a"), *nd, q],
+                     ["match", "-d", db("c"), *nd, "-R", "-X", "-x", "3", q]):
+            assert cli.main(argv, device="cpu") == 0
+        out[n] = [ln.replace(f".n{n}.", ".n.") for ln in _lines(capsys)]
+    assert out[1] == out[8]
+    assert any(re.search(r"Matched \S+q\.wav .* as \S+s1\.wav .* rank 0", ln)
+               for ln in out[8])
+    for k in "abc":
+        a, b = (HashTable(str(tmp_path / f"{k}.n{n}.pklz")) for n in (1, 8))
+        assert np.array_equal(a.table, b.table), k
+        assert np.array_equal(a.counts, b.counts), k
+        assert np.array_equal(a.hashesperid, b.hashesperid), k
+        assert a.names == b.names
+    assert int(HashTable(str(tmp_path / "c.n8.pklz")).counts.max()) > 2
+    import json
+    with open(tmp_path / "m8.json") as f:
+        assert set(json.load(f)["kernel_launches"]) >= {
+            "hpf_scan", "prune_fwd_bwd"}
+
+
+def test_cli_ndev_not_divisible_notes_and_falls_back(tmp_path, capsys):
+    """--ndev 3 does not divide a 2^12 table: new and merge say so and use
+    the host paths, match says so once and matches on one device."""
+    rng = np.random.default_rng(31)
+    x = synth_audio(rng, dur_sec=4.0, n_tones=40)
+    wav, q = str(tmp_path / "s.wav"), str(tmp_path / "q.wav")
+    audio_write_wav(wav, x, 11025)
+    audio_write_wav(q, x[256 * 20: 256 * 20 + 2 * 11025], 11025)
+    db, db2 = str(tmp_path / "a.pklz"), str(tmp_path / "b.pklz")
+    common = ["-h", "12", "--ndev", "3"]
+    assert cli.main(["new", "-d", db, *common, wav], device="cpu") == 0
+    assert ("Note: hashbits=12 table not divisible over 3 devices; using "
+            "host store") in capsys.readouterr().out
+    assert cli.main(["newmerge", "-d", db2, *common, db], device="cpu") == 0
+    assert "not divisible over 3 devices; using host merge" in \
+        capsys.readouterr().out
+    assert cli.main(["match", "-d", db, *common, q, q], device="cpu") == 0
+    out = capsys.readouterr().out
+    assert out.count("matching single-device") == 1
+    assert out.count("at rank 0") == 2

@@ -2,9 +2,11 @@
 and the host store on the CPU: the reservoir mix on values >= 2^31, the
 batched store bit for bit against DT.store_batch (bucket overflow into the
 reservoir, incremental stores, ids >= 2^17, a shard-local bucket range),
-DeviceIngest against the sequential host store, finalize's compact path
-against its slice path, and the CLI's `new --device-store` and streamed
-`new` end to end."""
+DeviceIngest against the sequential host store on one device and on
+meshes of 2 and 8 shards (routed ingest, mixed precomputed and raw input,
+the forced overflow replay, an incremental add), the fused mesh serving
+path against the two-stage one, finalize's compact path against its slice
+path, and the CLI's `new --device-store` and streamed `new` end to end."""
 
 import os
 
@@ -149,9 +151,177 @@ def test_device_ingest_matches_host_store(tmp_path):
 
 
 def test_device_ingest_refuses_several_devices():
+    """ndev > 1, once refused, builds a mesh of that many shards; a shard
+    count that does not divide the table raises the JAX package's
+    ValueError (the CLI turns it into a note and the host store)."""
     ht = HashTable(hashbits=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ING.DeviceIngest(ht, Analyzer(device="cpu"), ndev=2)
+    ing = ING.DeviceIngest(ht, Analyzer(device="cpu"), ndev=2)
+    assert ing.mesh.size == 2 and len(ing.table) == 2
+    assert ing.table[0].shape == (512, ht.depth)
+    with pytest.raises(ValueError, match="not divisible over 3 devices"):
+        ING.DeviceIngest(ht, Analyzer(device="cpu"), ndev=3)
+
+
+def _host_reference(an, names, sigs, **kw):
+    ht = HashTable(**kw)
+    for name, h in zip(names, an.samples_batch2hashes(sigs)):
+        ht.store_vectorized(name, h)
+    return ht
+
+
+SMALL = dict(hashbits=6, depth=2, maxtime=4096)
+
+
+@pytest.mark.parametrize("ndev", [2, 8])
+def test_fused_ingest_matches_host(ndev):
+    """The routed mesh ingest (each shard fingerprints its block, one
+    all_to_all routes every hash to its bucket's shard) equals the
+    sequential host store; the rows come back in input order with the
+    host's counts.  The table overflows its buckets, so the reservoir's
+    per-bucket insertion order is held too."""
+    an = Analyzer(device="cpu")
+    sigs = _clips(1, 5)
+    names = [f"clip{i}.wav" for i in range(5)]
+    want = _host_reference(an, names, sigs, **SMALL)
+    ht = HashTable(**SMALL)
+    ing = ING.DeviceIngest(ht, an, ndev)
+    batch, _lens = ing._stage_chunk(sigs)
+    assert batch.shape[0] % ndev == 0 and batch.shape[0] == 8
+    rows = ing.consume_chunk(ing.dispatch_chunk(
+        [(n, "wav", d) for n, d in zip(names, sigs)], report=print))
+    ing.finalize()
+    _assert_tables_equal(ht, want)
+    assert ing.replays == 0
+    assert [n for n, _, _ in rows] == names
+    assert [nh for _, nh, _ in rows] == [int(x) for x in want.hashesperid]
+    assert int(want.counts.max()) > want.depth
+
+
+def test_fused_ingest_mixed_pre_and_wav(tmp_path):
+    """Precomputed .afpt entries between raw audio on 8 shards: ids and
+    table equal the sequential loop over the same input order."""
+    an = Analyzer(device="cpu")
+    sigs = _clips(2, 4)
+    hashes = an.samples_batch2hashes(sigs)
+    pre = str(tmp_path / "pre1.afpt")
+    formats.hashes_save(pre, hashes[1])
+    names = ["a.wav", pre, "c.wav", "d.wav"]
+    want = HashTable(**SMALL)
+    for name, h in zip(names, hashes):
+        want.store_vectorized(name, h)
+    ht = HashTable(**SMALL)
+    ing = ING.DeviceIngest(ht, an, 8)
+    ing.consume_chunk(ing.dispatch_chunk(
+        [("a.wav", "wav", sigs[0]), (pre, "pre", None),
+         ("c.wav", "wav", sigs[2]), ("d.wav", "wav", sigs[3])], report=print))
+    ing.finalize()
+    _assert_tables_equal(ht, want)
+    assert ht.names[:4] == names
+
+
+def test_fused_ingest_overflow_replays_identically():
+    """A routing cap far below the real volume flags ok = 0 with every
+    write masked, and the replay through the replicated store gives the
+    same table."""
+    an = Analyzer(device="cpu")
+    sigs = _clips(3, 4)
+    names = [f"o{i}.wav" for i in range(4)]
+    want = _host_reference(an, names, sigs, **SMALL)
+    ht = HashTable(**SMALL)
+    ing = ING.DeviceIngest(ht, an, 8)
+    ing._fn = ING.sharded_fused_ingest_fn(ing.mesh, an.config, ing.cfg,
+                                          cap_override=4)
+    handle = ing.dispatch_chunk([(n, "wav", d) for n, d in zip(names, sigs)],
+                                report=print)
+    assert int(handle[0][3][-1]) == 0, "cap=4 must overflow"
+    assert not any(int(c.sum()) for c in ing.counts), "writes not masked"
+    rows = ing.consume_chunk(handle)
+    ing.finalize()
+    assert ing.replays == 1
+    _assert_tables_equal(ht, want)
+    assert [nh for _, nh, _ in rows] == [int(x) for x in want.hashesperid]
+
+
+def test_fused_ingest_incremental_add():
+    """add into a non-empty table uploads it sharded and continues the
+    reservoir bit-identically."""
+    an = Analyzer(device="cpu")
+    sigs = _clips(4, 6)
+    names = [f"inc{i}.wav" for i in range(6)]
+    want = _host_reference(an, names, sigs, **SMALL)
+    ht = _host_reference(an, names[:2], sigs[:2], **SMALL)
+    ing = ING.DeviceIngest(ht, an, 8)
+    ing.consume_chunk(ing.dispatch_chunk(
+        [(n, "wav", d) for n, d in zip(names[2:], sigs[2:])], report=print))
+    ing.finalize()
+    _assert_tables_equal(ht, want)
+
+
+def test_pack_entries_and_route_match_jax():
+    """_pack_entries gives JAX's (hash, entry) streams (one int64 word for
+    its lo / hi planes, packed and wide), and _route's send buffers hold
+    each destination's rows in arrival order, as JAX's sort-and-scatter."""
+    from audfprint_tpu.models import ingest as INGj
+
+    rng = np.random.default_rng(6)
+    for idbits in (0, 22):
+        cfg = DT.TableConfig(hashbits=12, depth=8, idbits=idbits)
+        cfgj = DTj.TableConfig(hashbits=12, depth=8, idbits=idbits)
+        tt, hh, vv = _streams(rng, 3, 64, cfg)
+        ids = np.array([5, (1 << 18) + 3 if idbits else 9, 70], np.int32)
+        hj, lo, hi, vj = INGj._pack_entries(
+            jnp.asarray(tt), jnp.asarray(hh), jnp.asarray(vv),
+            jnp.asarray(ids), cfgj)
+        hf, entry, vf = ING._pack_entries(
+            torch.from_numpy(tt), torch.from_numpy(hh), torch.from_numpy(vv),
+            torch.from_numpy(ids), cfg)
+        want = np.asarray(lo).astype(np.uint64)
+        if idbits:
+            want |= np.asarray(hi).astype(np.uint64) << np.uint64(32)
+        assert np.array_equal(hf.numpy(), np.asarray(hj))
+        assert np.array_equal(entry.numpy().astype(np.uint64), want)
+        assert np.array_equal(vf.numpy(), np.asarray(vj))
+    ops, ok = ING._route(hf, entry, vf, 1 << 10, 4, 64)
+    assert bool(ok)
+    dest = (hf // (1 << 10)).numpy()
+    for d in range(4):
+        sel = vf.numpy() & (dest == d)
+        n = int(sel.sum())
+        assert np.array_equal(ops[0][d, :n].numpy(), hf.numpy()[sel])
+        assert np.array_equal(ops[1][d, :n].numpy(), entry.numpy()[sel])
+        assert ops[2][d].numpy().sum() == n and ops[2][d, :n].all()
+    assert not bool(ING._route(hf, entry, vf, 1 << 10, 4, 8)[1])
+
+
+def test_fused_mesh_serving_matches_two_stage():
+    """The fused fingerprint + match path on 8 shards (5 rows pad to 8)
+    equals the two-stage mesh path and the single-device path, with the
+    readback re-match past a low cap."""
+    from audfprint_torch.match.matcher import Matcher
+
+    an = Analyzer(device="cpu")
+    sigs = _clips(8, 6, dur=4.0)
+    names = [f"s{i}.wav" for i in range(6)]
+    ht = _host_reference(an, names, sigs, hashbits=14, depth=20,
+                         maxtime=4096)
+    m = Matcher(ndev=8, verbose=0, device="cpu")
+    queries = [s[: SR * 2] for s in sigs[:5]]
+    fused = m.match_samples_fused(an, ht, queries)
+    assert fused is not None, "the mesh fused path must be eligible"
+    rows_f, nh_f = fused
+    hashes = an.samples_batch2hashes(queries)
+    rows_t = m.match_hashes_batch(ht, hashes)
+    rows_1 = Matcher(ndev=1, verbose=0, device="cpu").match_hashes_batch(
+        ht, hashes)
+    assert nh_f == [len(h) for h in hashes]
+    for i, (rf, rt, r1) in enumerate(zip(rows_f, rows_t, rows_1)):
+        np.testing.assert_array_equal(rf, rt)
+        np.testing.assert_array_equal(rf, r1)
+        assert len(rf) and ht.names[int(rf[0][0])] == names[i]
+    m2 = Matcher(ndev=8, verbose=0, device="cpu")
+    m2.fused_qcap = 8                    # every row re-matches two-stage
+    for rf, rt in zip(m2.match_samples_fused(an, ht, queries)[0], rows_t):
+        np.testing.assert_array_equal(rf, rt)
 
 
 @pytest.mark.parametrize("hashbits,depth,B,L,path", [

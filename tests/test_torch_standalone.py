@@ -3,7 +3,8 @@ chip_smoke.py, imports JAX or the JAX package; a fresh process that refuses
 those imports outright runs `new` then `match`; and the host modules the
 port keeps its own copies of (params, ops.config, index.hash_table,
 utils.{audio, formats, native, prng, timing}, oracle/) agree with their
-originals on the same numpy inputs, all on the CPU."""
+originals on the same numpy inputs, all on the CPU.  The scan walks the
+whole package, parallel/ and oracle/match.py included."""
 
 import ast
 import gzip
@@ -19,6 +20,8 @@ torch = pytest.importorskip("torch")
 from audfprint_tpu import params as Pj  # noqa: E402
 from audfprint_tpu.index.hash_table import HashTable as HTj  # noqa: E402
 from audfprint_tpu.oracle import analyze as OAj  # noqa: E402
+from audfprint_tpu.oracle import match as OMj  # noqa: E402
+from audfprint_tpu.parallel import sharded as SHj  # noqa: E402
 from audfprint_tpu.ops.config import PipelineConfig as PCj  # noqa: E402
 from audfprint_tpu.utils import audio as Aj  # noqa: E402
 from audfprint_tpu.utils import formats as Fj  # noqa: E402
@@ -28,6 +31,8 @@ from audfprint_tpu.utils.timing import Stages as Sj  # noqa: E402
 from audfprint_torch import params as Pt  # noqa: E402
 from audfprint_torch.index.hash_table import HashTable as HTt  # noqa: E402
 from audfprint_torch.oracle import analyze as OAt  # noqa: E402
+from audfprint_torch.oracle import match as OMt  # noqa: E402
+from audfprint_torch.parallel import sharded as SHt  # noqa: E402
 from audfprint_torch.ops.config import PipelineConfig as PCt  # noqa: E402
 from audfprint_torch.utils import audio as At  # noqa: E402
 from audfprint_torch.utils import formats as Ft  # noqa: E402
@@ -76,6 +81,15 @@ def test_source_imports_no_jax(rel):
         tree = ast.parse(f.read(), rel)
     bad = [(m, ln) for m, ln in _imported_roots(tree) if m in REFUSED]
     assert not bad, f"{rel} imports {bad}"
+
+
+def test_import_scan_covers_the_sharded_slice():
+    """The files this scan must reach are among the sources it walks."""
+    rels = set(_port_sources())
+    assert {"audfprint_torch/parallel/mesh.py",
+            "audfprint_torch/parallel/sharded.py",
+            "audfprint_torch/parallel/multihost.py",
+            "audfprint_torch/oracle/match.py", "chip_smoke.py"} <= rels
 
 
 def test_import_scan_sees_nested_imports():
@@ -256,6 +270,56 @@ def test_oracle_hashes_equal():
     h = OAt.landmarks2hashes(lm)
     assert np.array_equal(h, OAj.landmarks2hashes(lm))
     assert np.array_equal(OAt.hashes2landmarks(h), OAj.hashes2landmarks(h))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"exact_count": True, "max_returns": 3},
+    {"find_time_range": True, "max_returns": 2},
+    {"exact_count": True, "find_time_range": True, "sort_by_time": True,
+     "max_returns": 3, "threshcount": 2}],
+    ids=["approx", "exact", "time-range", "exact+range+by-time"])
+def test_oracle_match_equal(kw):
+    """The copied oracle matcher (find_modes, best_count_ids,
+    match_hashes) equals the original on a duplicate-heavy table, in every
+    mode."""
+    rng = np.random.default_rng(22)
+    ht = HTt(hashbits=12, depth=8, maxtime=1 << 12)
+    tracks = []
+    for i in range(6):                      # 64 hashes: buckets past depth
+        tracks.append(np.stack([rng.integers(0, 3000, 200),
+                                rng.integers(0, 64, 200)], axis=1))
+        ht.store_vectorized(f"track{i}.wav", tracks[-1].astype(np.int64))
+    for i in range(3):
+        q = np.unique(tracks[i][:150] + [40 * i, 0], axis=0)
+        got = OMt.match_hashes(ht, q, Pt.MatcherParams(**kw))
+        want = OMj.match_hashes(ht, q, Pj.MatcherParams(**kw))
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+        assert len(want)
+    data = rng.integers(-40, 40, 500)
+    for a, b in zip(OMt.find_modes(data, 3, 2), OMj.find_modes(data, 3, 2)):
+        assert np.array_equal(a, b)
+    hits = ht.get_hits(q)
+    for a, b in zip(OMt.best_count_ids(hits, ht),
+                    OMj.best_count_ids(hits, ht)):
+        assert np.array_equal(a, b)
+    assert OMt.match_hashes(ht, np.zeros((0, 2), np.int64)).shape == (0, 6)
+
+
+@pytest.mark.parametrize("idbits", [0, 22], ids=["packed", "wide"])
+def test_entry_streams_equal(idbits):
+    """parallel.sharded.entry_streams gives the original's replay streams:
+    the same hashes and validity, and each entry as one int64 word that
+    holds the original's uint32 entry (or its (lo, hi) planes joined)."""
+    from audfprint_tpu.index import device_table as DTj
+
+    kw = {"idbits": idbits} if idbits else {}
+    hs, es, vs = SHt.entry_streams(_filled(HTt, 31, **kw), id_offset=9)
+    hj, ej, vj = SHj.entry_streams(_filled(HTj, 31, **kw), id_offset=9)
+    assert np.array_equal(hs, hj) and hs.dtype == hj.dtype
+    assert np.array_equal(vs, vj) and len(hs) > 300
+    assert np.array_equal(es.astype(np.uint64),
+                          DTj.join_wide(ej) if idbits else ej)
+    assert int(es.max() >> 12) >= 9
 
 
 def _stages_out(cls):

@@ -1,7 +1,9 @@
-"""The sorted voting core's memory envelope on the CPU: the peak of live
-tensor bytes of match_batch_packed, counted by a dispatch mode, stays
-within what Matcher._sorted_bytes_per_row budgets for every option set,
-and splitting a batch by the budget leaves the rows unchanged."""
+"""The voting cores' memory envelopes on the CPU: the peak of live tensor
+bytes of match_batch_packed, counted by a dispatch mode, stays within
+what Matcher._sorted_bytes_per_row budgets for the sorted core (with the
+hpi plane too) and Matcher._voting_bytes_per_row for the histogram core,
+for every option set, and splitting a batch by the budget leaves the rows
+unchanged."""
 
 import weakref
 
@@ -99,6 +101,56 @@ def test_sorted_core_peak_within_estimate(opt):
         f"{per_row / (Q * DEPTH * 8):.0f}")
     # the tracker sees the core's arrays: at least the packed hit keys
     assert hit_words >= 2
+
+
+@pytest.mark.parametrize("opt", list(OPTIONS))
+def test_sorted_core_with_plane_peak_within_estimate(opt):
+    """The per-hit hashesperid payload of the hpi plane fits the same
+    budget."""
+    m = Matcher(device="cpu", **OPTIONS[opt])
+    table, counts, hpi, qt, qh, qv = _inputs(4)
+    plane = DT.build_hpi_plane(table, hpi, TCFG)
+    with LiveBytes() as lb:
+        V.match_batch_packed(table, counts, hpi, qt, qh, qv, TCFG,
+                             m._mcfg(2048, 256), "sorted", plane)
+    assert lb.peak <= B * m._sorted_bytes_per_row(TCFG, Q)
+
+
+@pytest.mark.parametrize("search_depth", [8, 100])
+@pytest.mark.parametrize("opt", list(OPTIONS))
+def test_hist_core_peak_within_estimate(opt, search_depth):
+    """Peak live bytes of one hist-core call <= B rows x
+    _voting_bytes_per_row, and not so far below that the estimate counts
+    buffers the core does not make: at least 2 of its (SD + 1) x nbins
+    int32 buffers at SD = 100."""
+    m = Matcher(device="cpu", search_depth=search_depth, **OPTIONS[opt])
+    mcfg = m._mcfg(2048, 256)
+    table, counts, hpi, qt, qh, qv = _inputs(5)
+    with LiveBytes() as lb:
+        V.match_batch_packed(table, counts, hpi, qt, qh, qv, TCFG, mcfg,
+                             "hist")
+    per_row = m._voting_bytes_per_row(TCFG, 2048, Q)
+    assert lb.peak <= B * per_row, (
+        f"{opt}: peak {lb.peak / B / 2**20:.2f} MiB a row, budget "
+        f"{per_row / 2**20:.2f}")
+    if search_depth == 100:
+        buf = (search_depth + 1) * (TCFG.maxtime + 2048) * 4
+        assert 2 * buf * B <= lb.peak
+        assert per_row <= 3 * lb.peak / B
+
+
+def test_envelopes_count_shards_that_share_a_device():
+    """On a mesh whose shards share one device the hist envelope is held
+    once per shard, and the sorted one gains the exchanged operands."""
+    from audfprint_torch.parallel import sharded
+
+    m = Matcher(device="cpu", find_time_range=True)
+    mesh = sharded.make_mesh(4, ["cpu"])
+    one = m._voting_bytes_per_row(TCFG, 2048, Q)
+    assert m._voting_bytes_per_row(TCFG, 2048, Q, mesh) == 4 * one
+    unit = Q * DEPTH * 8
+    assert (m._sorted_bytes_per_row(TCFG, Q, mesh)
+            - m._sorted_bytes_per_row(TCFG, Q)) == 2 * 4 * 2 * unit
 
 
 def test_live_bytes_tracker_counts_and_frees():
