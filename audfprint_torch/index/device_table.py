@@ -105,6 +105,13 @@ def get_hits_local(table: torch.Tensor, counts: torch.Tensor,
     return ids, dts, hvalid
 
 
+def get_hits(table: torch.Tensor, counts: torch.Tensor,
+             qtimes: torch.Tensor, qhashes: torch.Tensor,
+             qvalid: torch.Tensor, cfg: TableConfig):
+    """Full-table gather (single device); see get_hits_local."""
+    return get_hits_local(table, counts, qtimes, qhashes, qvalid, cfg, 0)
+
+
 def build_hpi_plane(table: torch.Tensor, hpi: torch.Tensor,
                     cfg: TableConfig) -> torch.Tensor:
     """Per-entry hashesperid plane aligned with the table: plane[b, s] =

@@ -198,6 +198,11 @@ class Matcher:
         return (DT.build_hpi_plane(table, hpi_dev, tcfg)
                 if self.use_hpi_plane else None)
 
+    def invalidate(self):
+        """Drop the cached device tables; the next match stages anew."""
+        self._dev = None
+        self._fallback_dev = None
+
     # -- core -------------------------------------------------------------
 
     def _budget_bytes(self) -> int:

@@ -858,6 +858,25 @@ def match_core(table: torch.Tensor, counts: torch.Tensor,
                       filt, min_t, max_t, mcfg)
 
 
+def match_batch_sorted(table: torch.Tensor, counts: torch.Tensor,
+                       hashesperid: torch.Tensor, qtimes: torch.Tensor,
+                       qhashes: torch.Tensor, qvalid: torch.Tensor,
+                       tcfg: DT.TableConfig, mcfg: MatchConfig,
+                       hpi_plane: torch.Tensor | None = None) -> dict:
+    """Single-device matching through the compacted run-length core, as
+    the JAX package's result dict: ids, filtcount, mode_dt, rawcount,
+    min_t and max_t (B, max_returns) int32, rvalid (B, max_returns) bool
+    and n_results (B,) int32."""
+    out = match_core_sorted(table, counts, hashesperid, qtimes, qhashes,
+                            qvalid, tcfg, mcfg, hpi_plane)
+    return {k: v if v.dtype == torch.bool else v.to(torch.int32)
+            for k, v in out.items()}
+
+
+# the default single-device entry, as in the JAX package
+match_batch = match_batch_sorted
+
+
 def match_batch_hist(table: torch.Tensor, counts: torch.Tensor,
                      hashesperid: torch.Tensor, qtimes: torch.Tensor,
                      qhashes: torch.Tensor, qvalid: torch.Tensor,

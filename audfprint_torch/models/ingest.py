@@ -7,7 +7,8 @@ per-file unique counts (for names, hashesperid and the report lines), and
 `finalize()` downloads the table into the host HashTable, the persistence
 mirror.
 
-  one device : fingerprint_batch -> store_batch_local (fused_ingest).
+  one device : fingerprint_batch -> store_batch_local
+               (fused_ingest_graph).
   a mesh     : each shard fingerprints its block of the chunk's batch,
                packs the entries, and routes every (hash, entry) pair to
                the shard that owns its bucket with one all_to_all, under a
@@ -37,16 +38,16 @@ from audfprint_torch.models.analyzer import _bucket_len
 from audfprint_torch.ops import pipeline as pipe
 
 
-def fused_ingest(table: torch.Tensor, counts: torch.Tensor,
-                 audio: torch.Tensor, lengths: torch.Tensor,
-                 ids: torch.Tensor, pcfg: PipelineConfig,
-                 tcfg: DT.TableConfig) -> torch.Tensor:
-    """Audio batch -> hashes -> stored table, updated in place; returns the
-    per-file unique hash counts (B,).  Semantics == sequential
-    HashTable.store of file 0, then file 1, ..."""
+def fused_ingest_graph(table: torch.Tensor, counts: torch.Tensor,
+                       audio: torch.Tensor, lengths: torch.Tensor,
+                       ids: torch.Tensor, pcfg: PipelineConfig,
+                       tcfg: DT.TableConfig):
+    """Audio batch -> hashes -> stored table, updated in place; returns
+    (table, counts, per-file unique hash counts (B,)).  Semantics ==
+    sequential HashTable.store of file 0, then file 1, ..."""
     t, h, uniq, cnt = pipe.fingerprint_batch(audio, lengths, pcfg)
     DT.store_batch_local(table, counts, t, h, uniq, ids, tcfg, 0)
-    return cnt
+    return table, counts, cnt
 
 
 def _pack_entries(t, h, uniq, ids, tcfg: DT.TableConfig):
@@ -258,11 +259,11 @@ class DeviceIngest:
         else:
             dev = self.device
             # the ok flag is a notion of the mesh's routing
-            cnt_ok = fused_ingest(self.table, self.counts,
-                                  torch.as_tensor(batch, device=dev),
-                                  torch.as_tensor(lens, device=dev),
-                                  torch.as_tensor(ids, device=dev),
-                                  self.analyzer.config, self.cfg)
+            cnt_ok = fused_ingest_graph(
+                self.table, self.counts, torch.as_tensor(batch, device=dev),
+                torch.as_tensor(lens, device=dev),
+                torch.as_tensor(ids, device=dev), self.analyzer.config,
+                self.cfg)[2]
         return ("wav", names, durs, cnt_ok, ids, batch, lens)
 
     def _dispatch_pre(self, rows):

@@ -177,6 +177,31 @@ def fwd_prune(sgram: torch.Tensor, n_frames: torch.Tensor,
     return _lists_to_mask(pos, ok, F)
 
 
+def fwd_prune_carry(sgram: torch.Tensor, n_frames: torch.Tensor,
+                    env_in: torch.Tensor, cfg: PipelineConfig,
+                    use_env_in: bool):
+    """fwd_prune with an explicit threshold-envelope carry: kernel K1f
+    (ops/cuda_peaks.prune_fwd_carry) on a CUDA tensor, its plain version
+    on a CPU tensor.  use_env_in=False seeds the envelope from the first
+    <= 10 valid frames as fwd_prune does; True continues from env_in (1, F)
+    or (B, F).  Returns (peak mask (B, T, F), envelope after the last
+    frame (B, F)); the decay follows every frame, valid or not."""
+    from audfprint_torch.ops import cuda_peaks as CP
+
+    B, T, F = sgram.shape
+    gvec = torch.as_tensor(gauss_vector(cfg), device=sgram.device)
+    if use_env_in:
+        env0 = env_in.to(sgram.device, torch.float32).expand(B, F)
+    else:
+        env0 = head_envelope(sgram, n_frames,
+                             torch.as_tensor(_gauss_table(cfg),
+                                             device=sgram.device))
+    lpos, _lval, env = CP.prune_fwd_carry(
+        CP.candidate_map(sgram, n_frames), env0.contiguous(), gvec,
+        cfg.a_dec, cfg.maxpksperframe)
+    return _lists_to_mask(lpos.long(), lpos >= 0, F), env
+
+
 def bwd_prune(sgram: torch.Tensor, peaks: torch.Tensor,
               n_frames: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
     """Backward prune of fwd-pass peaks -> final (B, T, F) bool mask."""

@@ -33,6 +33,10 @@ def frame_count_device(lengths: torch.Tensor,
                        0).to(torch.int32)
 
 
+# frames of an n-sample row, under the JAX package's name
+n_frames_padded_static = SP.n_frames_padded
+
+
 def _expand_shifts(audio: torch.Tensor, lengths: torch.Tensor,
                    cfg: PipelineConfig):
     """(B, N) -> (B*S, N) sub-hop-shifted copies; rows grouped per file."""

@@ -208,3 +208,10 @@ def hpf(white: torch.Tensor, cfg: PipelineConfig, carry=None):
     _build.check(err, "hpf_scan")
     launches["hpf_scan"] += 1
     return k2_results(y, x_out, y_out, F)
+
+
+def whitened_spectrogram(audio: torch.Tensor, n_frames: torch.Tensor,
+                         cfg: PipelineConfig) -> torch.Tensor:
+    """(B, N) float32, (B,) int -> HPF'd whitened log-mag (B, T, n_bins):
+    whitened_logmag then hpf (K2 on a CUDA tensor) from a zero carry."""
+    return hpf(whitened_logmag(audio, n_frames, cfg), cfg)[0]

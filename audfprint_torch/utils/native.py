@@ -66,6 +66,9 @@ def get_lib():
             lib = ctypes.CDLL(so)
         except OSError:
             return None
+        lib.s16_to_f32_mono.argtypes = [
+            ctypes.POINTER(ctypes.c_int16), ctypes.c_int64, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_float)]
         lib.load_wav_batch.argtypes = [
             ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
@@ -73,6 +76,21 @@ def get_lib():
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
         _lib = lib
         return _lib
+
+
+def s16_to_f32_mono(raw: np.ndarray, n_ch: int) -> np.ndarray | None:
+    """Interleaved int16 -> mono float32; None if the lib is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    raw = np.ascontiguousarray(raw, dtype=np.int16)
+    n_frames = len(raw) // n_ch
+    out = np.empty(n_frames, np.float32)
+    lib.s16_to_f32_mono(
+        raw.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        ctypes.c_int64(n_frames), ctypes.c_int(n_ch),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out
 
 
 def load_wav_batch(paths: list, max_samples: int, n_threads: int = 8):

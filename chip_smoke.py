@@ -106,7 +106,25 @@ Phases (any failure exits non-zero before the result line):
      queries; their table and rows equal the single-device ones.  Phase 9
      also runs new / add / match / merge with --ndev 4 against --ndev 1
 
-Each path of phases 6-8, 10-13 and 15 runs with the kernels' launch
+ 16. the JAX package's behavioural contract (its test_compat_surface,
+     test_edge_cases, test_fuzz_compat and test_accuracy), run right after
+     phase 5: audfprint_torch.compat's Analyzer() and Matcher() with no
+     device land on the card, glob2hashtable over four WAVs (oracle
+     Jaccard > 0.9) and match_file at rank 0; K1, K1f and K2's wrappers at
+     B = 0 and T = 0 return empty results without a launch; empty, short
+     and silent audio give no hashes, an empty DB and empty queries no
+     rows (Matcher and the fused path); 8/16/24/32-bit, stereo and
+     truncated WAVs decode through the native batch loader to the host
+     decode's arrays and hashes; time wrap at maxtime=512 matches at rank 0
+     at the wrapped offset; the duplicate-heavy hashbits=8, depth=4,
+     maxtimebits=8 table stored on the card equals the host store and both
+     voting cores equal the oracle's rows in 8 modes for 3 seeds; the
+     16 x 8 s accuracy fixture's clean, noisy, noise, out-of-DB, speed
+     and sweep bars, its rows equal to the oracle's; then, outside the
+     count, whitened_spectrogram on the card within the front end's
+     tolerance of the CPU and fwd_prune_carry (K1f) bit for bit
+
+Each path of phases 6-8, 10-13, 15 and 16 runs with the kernels' launch
 counts set to 0 just before it and read just after; the kernel record
 lists them by path.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
@@ -182,6 +200,24 @@ def synth_track(rng, dur_sec: float, tones_per_sec: float = 8.0,
         x[i0: i0 + m] += rng.uniform(0.1, 0.5) * np.hanning(m) * np.sin(
             2 * np.pi * f * tt + rng.uniform(0, 2 * np.pi))
     return (x / max(1e-9, np.max(np.abs(x))) * 0.7).astype(np.float32)
+
+
+def config2_track(i: int) -> np.ndarray:
+    """Track i of the config-2 corpus: synth_track at 30 s from its own
+    seed, so the corpus can be made in several processes."""
+    return synth_track(np.random.default_rng((SEED + 2, i)), 30.0)
+
+
+def _in_processes(fn, *args) -> list:
+    """list(map(fn, *args)) in spawned processes, one a core up to 8:
+    numpy's sin holds the interpreter lock at these sizes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(fn, *args, chunksize=16))
 
 
 def harmonic_track(seed: int, n: int) -> np.ndarray:
@@ -845,7 +881,7 @@ def phase_main_path(torch, rec: dict) -> dict:
     n_tracks, dur, qdur, n_q = 1000, 30.0, 10.0, 64
     rng = np.random.default_rng(SEED + 2)
     t0 = time.time()
-    tracks = [synth_track(rng, dur) for _ in range(n_tracks)]
+    tracks = _in_processes(config2_track, range(n_tracks))
     print(f"config 2: made {n_tracks} x {dur:g} s tracks in "
           f"{time.time() - t0:.1f} s (host numpy, not timed)")
     qsel = rng.choice(n_tracks, n_q, replace=False)
@@ -1606,9 +1642,6 @@ def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
     table, 3 s queries degraded 9 ways and fingerprinted by the
     noisy-query analyzer, matched plain, and the speed conditions again
     through the +/-4% sweep in chunks of 8 queries."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     from audfprint_torch.index.hash_table import HashTable
     from audfprint_torch.match.matcher import Matcher, sweep_factors
     from audfprint_torch.models import presets
@@ -1617,12 +1650,8 @@ def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
     from audfprint_torch.ops import spectro as SP
 
     t0 = time.time()
-    # numpy's sin holds the interpreter lock at these sizes: processes
-    with ProcessPoolExecutor(
-            max_workers=min(8, os.cpu_count() or 1),
-            mp_context=multiprocessing.get_context("spawn")) as ex:
-        tracks = list(ex.map(harmonic_track, range(n_tracks),
-                             [int(dur * SR)] * n_tracks, chunksize=16))
+    tracks = _in_processes(harmonic_track, range(n_tracks),
+                           [int(dur * SR)] * n_tracks)
     t_make = time.time() - t0
     t0 = time.time()
     hashes = Analyzer(device=dev).samples_batch2hashes(tracks)
@@ -2148,8 +2177,12 @@ def phase_cli() -> dict:
                    and np.array_equal(a.counts, b.counts)
                    and np.array_equal(a.hashesperid, b.hashesperid))
         print(f"CLI new --device-store database equals new's: {same_db}")
-        serving = phase_cli_serving(d, db, wavs, songs, query, q, rank0)
-        serving.update(phase_cli_ndev(d, wavs, query, rank0))
+        # the --ndev chains beside the serving modes: each subprocess
+        # spends most of its time starting up
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            ndev = ex.submit(phase_cli_ndev, d, wavs, query, rank0)
+            serving = phase_cli_serving(d, db, wavs, songs, query, q, rank0)
+            serving.update(ndev.result())
     with tempfile.TemporaryDirectory() as d:
         got = golden_session(d, lambda argv: main(argv, device="cuda"))
     with open(os.path.join(ROOT, "tests", "golden", "cli_session.txt")) as f:
@@ -2309,6 +2342,440 @@ def phase_cli_serving(d, db, wavs, songs, query, q, rank0) -> dict:
             "profile_kernel_events": kern}
 
 
+# ---- the JAX package's behavioural contract on the card -------------------
+
+def _write_wav(path: str, x, sampwidth: int, nch: int = 1) -> None:
+    """A PCM WAV of `sampwidth` bytes and `nch` identical channels
+    (tests/test_edge_cases.py's writer, which imports JAX)."""
+    import wave
+
+    x = np.asarray(x)
+    if nch > 1:
+        x = np.repeat(x[:, None], nch, axis=1).reshape(-1)
+    if sampwidth == 1:
+        raw = (np.clip(x, -1, 1) * 127 + 128).astype(np.uint8).tobytes()
+    elif sampwidth == 2:
+        raw = (np.clip(x, -1, 1) * 32767).astype("<i2").tobytes()
+    elif sampwidth == 3:
+        v = (np.clip(x, -1, 1) * (2**23 - 1)).astype(np.int32)
+        b = np.zeros((len(v), 3), np.uint8)
+        b[:, 0], b[:, 1], b[:, 2] = v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF
+        raw = b.tobytes()
+    else:
+        raw = (np.clip(x, -1, 1) * (2**31 - 1)).astype("<i4").tobytes()
+    with wave.open(path, "wb") as w:
+        w.setnchannels(nch)
+        w.setsampwidth(sampwidth)
+        w.setframerate(SR)
+        w.writeframes(raw)
+
+
+def _contract_compat(torch, dev, d) -> dict:
+    """audfprint_torch.compat with no device: Analyzer() lands on `dev`,
+    glob2hashtable over four WAVs equals the Analyzer's own call, the
+    hashes hold Jaccard > 0.9 against the numpy oracle, and
+    Matcher().match_file names each excerpt's track at rank 0."""
+    from audfprint_torch.compat import audfprint_analyze as ca
+    from audfprint_torch.compat import audfprint_match as cm
+    from audfprint_torch.oracle import analyze as oa
+    from audfprint_torch.utils.audio import audio_write_wav
+
+    rng = np.random.default_rng(SEED + 70)
+    songs = [synth_audio(rng, dur_sec=10.0, n_tones=80) for _ in range(4)]
+    for i, x in enumerate(songs):
+        audio_write_wav(os.path.join(d, f"compat{i}.wav"), x, SR)
+    an = ca.Analyzer()
+    require(an.device.type == torch.device(dev).type,
+            f"compat Analyzer() landed on {an.device}, not {dev}")
+    pattern = os.path.join(d, "compat*.wav")
+    ht = ca.glob2hashtable(pattern)
+    again = an.glob2hashtable(pattern)
+    require(_tables_equal(ht, again),
+            "compat glob2hashtable differs from Analyzer().glob2hashtable")
+    jac = [_jaccard(oa.samples_to_hashes(x), h)[0]
+           for x, h in zip(songs, an.samples_batch2hashes(songs))]
+    m = cm.Matcher()
+    require(m.device.type == torch.device(dev).type,
+            f"compat Matcher() landed on {m.device}, not {dev}")
+    ranks = []
+    for i, x in enumerate(songs):
+        q = os.path.join(d, f"compat_q{i}.wav")
+        audio_write_wav(q, x[3 * SR: 7 * SR], SR)
+        rows, _dur, _nh = m.match_file(an, ht, q)
+        ranks.append(len(rows) > 0 and ht.names[int(rows[0][0])]
+                     == os.path.join(d, f"compat{i}.wav"))
+    print(f"contract compat: Analyzer() on {an.device}, glob2hashtable "
+          f"{len(ht.names)} files, {ht.totalhashes()} hashes; oracle "
+          f"Jaccard {[round(j, 4) for j in jac]}; match_file rank 0 "
+          f"{sum(ranks)} of {len(ranks)}")
+    require(min(jac) > 0.9, f"compat hashes: oracle Jaccard {min(jac)}")
+    require(all(ranks), f"compat match_file missed rank 0: {ranks}")
+    return {"contract_compat_jaccard_min": min(jac)}
+
+
+def _contract_zero_size(torch, dev) -> None:
+    """The kernels' wrappers at B = 0 and T = 0 return empty results
+    without a launch (their guards, not a caught error)."""
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import peaks as PK
+    from audfprint_torch.ops import spectro as SP
+    from audfprint_torch.ops.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    F, k = cfg.n_bins, cfg.maxpksperframe
+    gvec = torch.as_tensor(PK.gauss_vector(cfg), device=dev)
+    before = _counts(SP, CP)
+    for B, T in ((0, 40), (2, 0), (0, 0)):
+        x = torch.zeros((B, T, F), device=dev)
+        nf = torch.full((B,), T, dtype=torch.int32, device=dev)
+        y, (xc, yc) = SP.hpf(x, cfg)
+        require(y.shape == (B, T, F) and xc.shape == (B, F),
+                f"hpf at B={B}, T={T}: {tuple(y.shape)}")
+        bins, valid = CP.find_peaks_slots_fused(x, nf, cfg)
+        require(bins.shape == (B, T, k) and not bool(valid.any()),
+                f"find_peaks_slots_fused at B={B}, T={T}")
+        kept = CP.prune_fwd_bwd(x, nf, torch.zeros((B, F), device=dev),
+                                torch.zeros((B, F), device=dev), gvec,
+                                cfg.a_dec, k)
+        require(kept.shape == (B, T, k), f"prune_fwd_bwd at B={B}, T={T}")
+        if B == 0:
+            lpos, _v, env = CP.prune_fwd_carry(
+                x, torch.zeros((B, F), device=dev), gvec, cfg.a_dec, k)
+            require(lpos.shape == (B, T, k) and env.shape == (B, F),
+                    f"prune_fwd_carry at B={B}, T={T}")
+    _sync(torch, dev)
+    after = _counts(SP, CP)
+    require(after == before, f"a zero-size call launched a kernel: {before} "
+                             f"-> {after}")
+
+
+def _contract_edges(torch, dev, d) -> dict:
+    """Empty, short and silent audio give no hashes; an empty DB and an
+    empty query give no rows through Matcher and the fused path; WAVs of
+    8/16/24/32 bits, stereo and truncated decode through the batched
+    native loader to the host decode's arrays and hashes; a 20 s track
+    stored at maxtime=512 matches at rank 0 at the wrapped offset."""
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.match.matcher import Matcher
+    from audfprint_torch.models.analyzer import Analyzer
+    from audfprint_torch.utils import audio as audio_io
+
+    an = Analyzer(device=dev)
+    rng = np.random.default_rng(SEED + 71)
+    song = synth_audio(rng, dur_sec=4.0)
+    zeros = [np.zeros(n, np.float32) for n in (0, 100, SR)]
+    silent = os.path.join(d, "silent.wav")
+    audio_io.audio_write_wav(silent, zeros[2], SR)
+    got = an.samples_batch2hashes(zeros + [song])
+    require([len(h) for h in got[:3]] == [0, 0, 0] and len(got[3]) > 10,
+            f"empty/short/silent audio: {[len(h) for h in got]} hashes")
+    require(all(len(an.samples2hashes(z)) == 0 for z in zeros)
+            and len(an.wavfile2hashes(silent)) == 0,
+            "empty, short or silent audio gave hashes")
+
+    q = an.samples2hashes(song)
+    empty_q = np.zeros((0, 2), np.int32)
+    n_rows = []
+    for geom in ({"hashbits": 12, "depth": 4, "maxtime": 1024}, {}):
+        ht = HashTable(**geom)
+        m = Matcher(device=dev, verbose=0)
+        n_rows.append(len(m.match_hashes(ht, q)))
+        fused = m.match_samples_fused(an, ht, [song, zeros[2]])
+        n_rows += [len(r) for r in fused[0]]
+        ht.store_vectorized("song", q)
+        m.invalidate()
+        n_rows.append(len(m.match_hashes(ht, empty_q)))
+        both = m.match_hashes_batch(ht, [empty_q, q, empty_q])
+        fused = m.match_samples_fused(an, ht, [zeros[0], song, zeros[2]])
+        require([len(r) for r in both] == [0, 1, 0]
+                and [len(r) for r in fused[0]] == [0, 1, 0],
+                f"empty queries beside a real one: {both} / {fused[0]}")
+    require(n_rows == [0] * len(n_rows),
+            f"an empty DB or an empty query gave rows: {n_rows}")
+
+    paths, variants = [], [(1, 1), (2, 1), (2, 2), (3, 1), (4, 1)]
+    x = synth_audio(rng, dur_sec=3.0, n_tones=30)
+    for w, nch in variants:
+        paths.append(os.path.join(d, f"v{w}_{nch}.wav"))
+        _write_wav(paths[-1], x, w, nch)
+    with open(paths[1], "rb") as f:
+        raw = f.read()
+    paths.append(os.path.join(d, "trunc.wav"))
+    with open(paths[-1], "wb") as f:
+        f.write(raw[:-1])
+    nat = audio_io.read_wav_batch(paths, sr=SR)
+    require(nat is not None, "the native WAV loader did not build")
+    native_ok = 0
+    for p, y in zip(paths, nat):
+        host, _sr = audio_io.audio_read(p, sr=SR)
+        if y is not None:
+            native_ok += 1
+            require(np.array_equal(y, host), f"{os.path.basename(p)}: the "
+                    "native decode differs from the host decode")
+        hy = an.samples2hashes(host if y is None else y)
+        require(np.array_equal(hy, an.wavfile2hashes(p)) and len(hy) > 10,
+                f"{os.path.basename(p)}: hashes differ from the host "
+                "decode's")
+    trunc, _sr = audio_io.audio_read(paths[-1], sr=SR)
+    require(len(trunc) == 3 * SR - 1,
+            f"the truncated WAV decoded to {len(trunc)} samples")
+
+    maxtime = 512
+    long = synth_audio(np.random.default_rng(SEED + 72), dur_sec=20.0,
+                       n_tones=140)
+    h = an.samples2hashes(long)
+    ht = HashTable(hashbits=16, depth=30, maxtime=maxtime)
+    ht.store_vectorized("wrap", h)
+    clip = long[256 * 600: 256 * 600 + 4 * SR]
+    rows = Matcher(device=dev, verbose=0).match_hashes(
+        ht, an.samples2hashes(clip))
+    fused = Matcher(device=dev, verbose=0).match_samples_fused(an, ht, [clip])
+    require(int(h[:, 0].max()) > maxtime, "the track does not wrap")
+    require(len(rows) == 1 and int(rows[0][0]) == 0
+            and abs(int(rows[0][2]) - 600 % maxtime) <= 2,
+            f"time wrap: rows {rows}")
+    require(np.array_equal(fused[0][0], rows), "time wrap: the fused path's "
+                                               "rows differ")
+    print(f"contract edges: 0/100/{SR} zero samples and a silent WAV give "
+          f"0 hashes; empty DB and empty queries 0 rows (Matcher, fused); "
+          f"{len(paths)} WAV variants decoded ({native_ok} by the native "
+          f"loader) to the host decode's hashes; time wrap at maxtime="
+          f"{maxtime}: rank 0 at offset {int(rows[0][2])} (expected "
+          f"{600 % maxtime})")
+    return {"contract_native_decoded": native_ok}
+
+
+def _contract_duplicates(torch, dev, seeds=(11, 12, 13)) -> int:
+    """tests/test_fuzz_compat.py's duplicate-heavy store and match on the
+    card: a hashbits=8, depth=4, maxtimebits=8 table whose buckets all
+    overflow; DT.store_batch equals the numpy HashTable, and both voting
+    cores equal oracle.match.match_hashes in every combination of exact x
+    time range x sort by time, bit for bit."""
+    from audfprint_torch import params as P
+    from audfprint_torch.index import device_table as DT
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.match import voting
+    from audfprint_torch.oracle import match as om
+
+    n_rows = 0
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        tcfg = DT.TableConfig(hashbits=8, depth=4, maxtimebits=8)
+        ht = HashTable(hashbits=8, depth=4, maxtime=256)
+        streams = [np.stack([rng.integers(0, 64, 300),
+                             rng.integers(0, 16, 300)], axis=1).astype(
+            np.int32) for _ in range(4)]
+        for i, pairs in enumerate(streams):
+            ht.store(f"t{i}", pairs)
+        table, counts = DT.empty_table(tcfg, dev)
+        DT.store_batch(
+            table, counts,
+            torch.as_tensor(np.stack([s[:, 0] for s in streams]), device=dev),
+            torch.as_tensor(np.stack([s[:, 1] for s in streams]), device=dev),
+            torch.ones((4, 300), dtype=torch.bool, device=dev),
+            torch.arange(4, dtype=torch.int32, device=dev), tcfg)
+        require(np.array_equal(table.cpu().numpy().view(np.uint32), ht.table)
+                and np.array_equal(counts.cpu().numpy(), ht.counts),
+                f"seed {seed}: the device store differs from the host's")
+        q = np.unique(np.stack([rng.integers(0, 32, 60),
+                                rng.integers(0, 16, 60)], axis=1).astype(
+            np.int32), axis=0)
+        qt, qh, qv = (np.zeros((1, 64), np.int32), np.zeros((1, 64), np.int32),
+                      np.zeros((1, 64), bool))
+        qt[0, :len(q)], qh[0, :len(q)], qv[0, :len(q)] = q[:, 0], q[:, 1], True
+        hpi = np.zeros(16, np.int32)
+        hpi[:4] = ht.hashesperid
+        args = [torch.as_tensor(a, device=dev) for a in (hpi, qt, qh, qv)]
+        for exact in (False, True):
+            for tr in (False, True):
+                for sbt in (False, True):
+                    mp = P.MatcherParams(search_depth=8, max_returns=4,
+                                         threshcount=1, exact_count=exact,
+                                         find_time_range=tr, sort_by_time=sbt)
+                    want = om.match_hashes(ht, q, mp)
+                    mcfg = voting.MatchConfig.from_params(mp, qt_cap=64,
+                                                          n_ids_cap=16)
+                    out = voting.match_batch(table, counts, *args, tcfg, mcfg)
+                    n = int(out["n_results"][0])
+                    got = {"sorted": np.stack(
+                        [out[c][0].cpu().numpy() for c in (
+                            "ids", "filtcount", "mode_dt", "rawcount",
+                            "min_t", "max_t")], axis=1)[:n]}
+                    packed = voting.match_batch_packed(
+                        table, counts, *args, tcfg, mcfg, core="hist").cpu()
+                    got["hist"] = packed[0, : int(packed[0, :, 6].sum()),
+                                         :6].numpy()
+                    for core, g in got.items():
+                        require(np.array_equal(g, want),
+                                f"seed {seed} core {core} exact={exact} "
+                                f"time range={tr} sort by time={sbt}: card "
+                                f"{g.tolist()} oracle {want.tolist()}")
+                    n_rows += 2 * len(want)
+    print(f"contract duplicate-heavy: {len(seeds)} seeds, the device store "
+          f"equal to the host's, {n_rows} rows of 2 cores x 8 modes equal "
+          f"the oracle's bit for bit")
+    return n_rows
+
+
+def _contract_accuracy(torch, dev) -> dict:
+    """tests/test_accuracy.py's 16 x 8 s fixture and query sets on the
+    card: clean >= 0.95, noisy >= 0.8, no rows on noise or out-of-DB
+    music, the rows equal to the numpy oracle's on the card's hashes; the
+    +/-4% sweep recovers the sped queries (>= 0.9, >= plain + 0.3)."""
+    from scipy.signal import resample_poly
+
+    from audfprint_torch import params as P
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.match.matcher import Matcher
+    from audfprint_torch.models.analyzer import Analyzer
+    from audfprint_torch.oracle import match as om
+
+    dur, n_tracks = 8.0, 16
+    rng = np.random.default_rng(2026)
+    tracks = [synth_audio(rng, dur_sec=dur, n_tones=60)
+              for _ in range(n_tracks)]
+    an = Analyzer(device=dev)
+    ht = HashTable(hashbits=18, depth=50, maxtime=8192)
+    for i, h in enumerate(an.samples_batch2hashes(tracks)):
+        ht.store_vectorized(f"track{i}", h)
+
+    def segment(x):
+        start = rng.integers(0, int((dur - 4) * SR))
+        return x[start: start + 4 * SR].copy()
+
+    def sped(c):
+        return resample_poly(c.astype(np.float64), 962, 1000).astype(
+            np.float32)
+
+    # the file's draws from its module generator, in the order of its tests
+    sets = {"clean": [segment(x) for x in tracks], "noisy": []}
+    for x in tracks:
+        c = segment(x)
+        sets["noisy"].append(c + 0.05 * rng.standard_normal(len(c)).astype(
+            np.float32))
+    sets["noise"] = [(0.1 * rng.standard_normal(4 * SR)).astype(np.float32)
+                     for _ in range(8)]
+    clean0 = [segment(x) for x in tracks]
+    for snr_db in (30, 20, 10, 5, 0):
+        for c in clean0:
+            rng.standard_normal(len(c))
+    speed_clean = [segment(x) for x in tracks]
+    sets["speed"] = [sped(c) for c in speed_clean]
+    sweep = [sped(segment(x)) for x in tracks]
+    sets["oodb"] = [synth_audio(np.random.default_rng(777000 + i),
+                                dur_sec=4.0, n_tones=60) for i in range(8)]
+
+    m = Matcher(device=dev, verbose=0)
+    truths = list(range(n_tracks))
+    top1, n_rows = {}, 0
+    for name, queries in sets.items():
+        qh = an.samples_batch2hashes(queries)
+        rows = m.match_hashes_batch(ht, qh)
+        want = [om.match_hashes(ht, h, P.MatcherParams()) for h in qh]
+        bad = _rows_differing(rows, want)
+        require(not bad, f"accuracy set {name}: rows differ from the "
+                         f"oracle's for queries {bad[:8]}")
+        n_rows += sum(len(w) for w in want)
+        top1[name] = (sum(1 for r in rows if len(r)) / len(rows)
+                      if name in ("noise", "oodb") else
+                      sum(1 for r, t in zip(rows, truths)
+                          if len(r) and r[0][0] == t) / n_tracks)
+    best = m.match_samples_sweep(an, ht, sweep, 4.0)
+    plain = m.match_hashes_batch(ht, an.samples_batch2hashes(sweep))
+    r_plain = sum(1 for r, t in zip(plain, truths)
+                  if len(r) and r[0][0] == t) / n_tracks
+    r_sweep = sum(1 for (r, _f, _nh), t in zip(best, truths)
+                  if len(r) and int(r[0][0]) == t) / n_tracks
+    print(f"contract accuracy (16 x 8 s): top-1 clean {top1['clean']}, "
+          f"noisy {top1['noisy']}, sped {top1['speed']}; rows reported on "
+          f"noise {top1['noise']}, out-of-DB {top1['oodb']}; sweep "
+          f"{r_sweep} against plain {r_plain}; {n_rows} rows equal the "
+          f"oracle's")
+    require(top1["clean"] >= 0.95, f"clean top-1 {top1['clean']}")
+    require(top1["noisy"] >= 0.8, f"noisy top-1 {top1['noisy']}")
+    require(top1["noise"] == 0 and top1["oodb"] == 0,
+            f"false positives: noise {top1['noise']}, oodb {top1['oodb']}")
+    require(top1["speed"] <= top1["clean"] - 0.3,
+            f"a 3.8% speed change did not degrade: {top1['speed']}")
+    require(r_sweep >= 0.9 and r_sweep >= r_plain + 0.3,
+            f"sweep {r_sweep} against plain {r_plain}")
+    return {"contract_top1_clean": top1["clean"],
+            "contract_top1_noisy": top1["noisy"],
+            "contract_sweep_top1": r_sweep}
+
+
+def _contract_new_functions(torch, dev) -> None:
+    """The entry points ported last, on the card against the CPU:
+    whitened_spectrogram (K2) within the front end's tolerance, and
+    fwd_prune_carry (K1f) bit for bit on the same spectrogram, from the
+    head and from a carried envelope."""
+    from audfprint_torch.ops import peaks as PK
+    from audfprint_torch.ops import pipeline as PL
+    from audfprint_torch.ops import spectro as SP
+    from audfprint_torch.ops.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    rng = np.random.default_rng(SEED + 73)
+    x = np.stack([synth_audio(rng, dur_sec=6.0, n_tones=50)
+                  for _ in range(2)])
+    nf = np.array([PL.n_frames_padded_static(x.shape[1], cfg), 100],
+                  np.int32)
+    got = SP.whitened_spectrogram(torch.as_tensor(x, device=dev),
+                                  torch.as_tensor(nf, device=dev), cfg)
+    want = SP.whitened_spectrogram(torch.as_tensor(x), torch.as_tensor(nf),
+                                   cfg)
+    err = max(float((got[b, :n].cpu() - want[b, :n]).abs().max())
+              for b, n in enumerate(nf))
+    require(all(torch.allclose(got[b, :n].cpu(), want[b, :n], atol=5e-3,
+                               rtol=1e-3) for b, n in enumerate(nf)),
+            f"whitened_spectrogram on the card: max |diff| {err}")
+    sg = np.round(rng.standard_normal((2, 400, cfg.n_bins)) * 2).astype(
+        np.float32) / 2
+    nfp = np.array([400, 257], np.int32)
+    env = np.abs(rng.standard_normal((2, cfg.n_bins))).astype(np.float32)
+    for use_env in (False, True):
+        mk, ek = PK.fwd_prune_carry(
+            *[torch.as_tensor(a, device=dev) for a in (sg, nfp, env)], cfg,
+            use_env)
+        mp, ep = PK.fwd_prune_carry(
+            *[torch.as_tensor(a) for a in (sg, nfp, env)], cfg, use_env)
+        require(torch.equal(mk.cpu(), mp) and _same_bits(torch, ek.cpu(), ep),
+                f"fwd_prune_carry (K1f) differs from its plain version, "
+                f"envelope in: {use_env}")
+    print(f"contract new entry points: whitened_spectrogram on the card "
+          f"max |diff| {err:.3g} against the CPU; fwd_prune_carry (K1f) bit "
+          f"for bit, from the head and from a carry")
+
+
+def phase_contract(torch, rec: dict, dev, d) -> dict:
+    """The JAX package's behavioural contract (its tests/test_edge_cases,
+    test_fuzz_compat, test_accuracy and test_compat_surface) on the card:
+    the compat surface with no device, the kernels' zero-size guards, the
+    edge inputs, the duplicate-heavy tiny geometry against the oracle and
+    the accuracy fixture.  The kernels' launches are counted over these
+    (the zero-size calls launch nothing); the comparisons of the entry
+    points ported last with the CPU come after the count."""
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import spectro as SP
+
+    t0 = time.time()
+    _counts_zero(SP, CP)
+    out = _contract_compat(torch, dev, d)
+    _contract_zero_size(torch, dev)
+    out.update(_contract_edges(torch, dev, d))
+    out["contract_rows_duplicate_heavy"] = _contract_duplicates(torch, dev)
+    out.update(_contract_accuracy(torch, dev))
+    _sync(torch, dev)
+    launches = _counts(SP, CP)
+    out["contract_s"] = time.time() - t0
+    print(f"contract phase: {out['contract_s']:.2f} s; launches {launches}")
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+            f"a kernel was not launched on the contract path: {launches}")
+    rec["_paths"]["contract"] = launches
+    _contract_new_functions(torch, dev)      # comparisons: not counted
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-rank":
         return _gloo_rank(sys.argv[2:])
@@ -2348,25 +2815,43 @@ def main() -> int:
             for line in f:
                 if "Used" in line:
                     print("  ptxas:" + line.split("info    :")[-1].rstrip())
-        phase_kernels(torch, rec)
-        phase_stream_kernels(torch, rec, dev)
-        main_summary, ctx, t_two_stage = phase_main_path(torch, rec)
+        walls: dict = {}
+        summary["phase_wall_s"] = walls
+
+        def timed(name, fn, *args):
+            t = time.time()
+            out = fn(*args)
+            walls[name] = round(time.time() - t, 1)
+            return out
+
+        timed("kernels", phase_kernels, torch, rec)
+        timed("stream_kernels", phase_stream_kernels, torch, rec, dev)
+        with tempfile.TemporaryDirectory() as d:
+            summary.update(timed("contract", phase_contract, torch, rec, dev,
+                                 d))
+        main_summary, ctx, t_two_stage = timed("main_path", phase_main_path,
+                                               torch, rec)
         summary.update(main_summary)
-        summary.update(phase_vote_rows(torch, ctx, dev))
-        summary.update(phase_device_store(torch, rec, ctx["tracks"],
-                                          ctx["ht"], t_two_stage, dev))
-        summary.update(phase_sharded(torch, rec, ctx, dev))
+        summary.update(timed("vote_rows", phase_vote_rows, torch, ctx, dev))
+        summary.update(timed("device_store", phase_device_store, torch, rec,
+                             ctx["tracks"], ctx["ht"], t_two_stage, dev))
+        summary.update(timed("sharded", phase_sharded, torch, rec, ctx, dev))
         with tempfile.TemporaryDirectory() as d:
-            summary.update(phase_process_boundary(torch, ctx, dev, d))
-        summary.update(phase_config3(torch, rec, dev))
+            summary.update(timed("process_boundary", phase_process_boundary,
+                                 torch, ctx, dev, d))
+        summary.update(timed("config3", phase_config3, torch, rec, dev))
         with tempfile.TemporaryDirectory() as d:
-            summary.update(phase_broadcast(torch, rec, ctx, dev, d))
-            summary.update(phase_listen(torch, rec, ctx, dev, d))
-        summary.update(phase_wide(torch, rec, ctx, dev))
+            summary.update(timed("broadcast", phase_broadcast, torch, rec,
+                                 ctx, dev, d))
+            summary.update(timed("listen", phase_listen, torch, rec, ctx, dev,
+                                 d))
+        summary.update(timed("wide", phase_wide, torch, rec, ctx, dev))
         del ctx
         with tempfile.TemporaryDirectory() as d:
-            summary.update(phase_streaming(torch, rec, {"dir": d}, dev))
-        summary.update(phase_cli())
+            summary.update(timed("streaming", phase_streaming, torch, rec,
+                                 {"dir": d}, dev))
+        summary.update(timed("cli", phase_cli))
+        print("phase walls, s: " + json.dumps(walls))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

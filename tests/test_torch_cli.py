@@ -98,7 +98,7 @@ def small_db(tmp_path_factory):
     ["match", "--listen"], ["match", "--windowed", "5"],
     ["match", "--speed-sweep", "3"], ["match", "-I"],
     ["new", "--profile", "trace"]])
-def test_unported_features_exit_nonzero(extra, small_db, capsys,
+def test_once_refused_features_run(extra, small_db, capsys,
                                         monkeypatch):
     """Every flag of the JAX CLI, once refused here, now runs through the
     port: warmup, --listen, --windowed, --speed-sweep, -I, --profile, and
@@ -144,7 +144,7 @@ def test_unported_features_exit_nonzero(extra, small_db, capsys,
             assert "matplotlib not available; skipping" in out
 
 
-def test_wide_table_exits_nonzero(tmp_path, capsys):
+def test_wide_table_saves_uint64(tmp_path, capsys):
     """`new --idbits 24` (past 32 - maxtimebits) saves a wide database
     with uint64 entries, once refused here."""
     from audfprint_tpu.index.hash_table import HashTable
@@ -161,7 +161,7 @@ def test_wide_table_exits_nonzero(tmp_path, capsys):
     assert ht.counts.sum() > 0
 
 
-def test_long_wav_refuses_streaming(tmp_path):
+def test_long_wav_takes_streamed_route(tmp_path):
     """A WAV past stream_above_sec is no longer refused: it takes the
     streamed route, and an all-zero one yields no hashes."""
     path = str(tmp_path / "long.wav")

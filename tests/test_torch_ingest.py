@@ -150,7 +150,7 @@ def test_device_ingest_matches_host_store(tmp_path):
     assert int(ht.counts.max()) > 4                 # overflowed buckets
 
 
-def test_device_ingest_refuses_several_devices():
+def test_device_ingest_builds_mesh():
     """ndev > 1, once refused, builds a mesh of that many shards; a shard
     count that does not divide the table raises the JAX package's
     ValueError (the CLI turns it into a note and the host store)."""

@@ -233,7 +233,7 @@ def test_fused_path_equals_two_stage():
         np.testing.assert_array_equal(r, w)
 
 
-def test_wide_table_not_ported():
+def test_wide_table_int64_plane_gather():
     """A wide table (--idbits 24, once refused) uploads as one int64 plane
     whose gather decodes the host's ids and dts."""
     ht = HashTable(hashbits=10, depth=4, maxtime=1024, idbits=24)

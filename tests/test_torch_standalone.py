@@ -4,7 +4,7 @@ those imports outright runs `new` then `match`; and the host modules the
 port keeps its own copies of (params, ops.config, index.hash_table,
 utils.{audio, formats, native, prng, timing}, oracle/) agree with their
 originals on the same numpy inputs, all on the CPU.  The scan walks the
-whole package, parallel/ and oracle/match.py included."""
+whole package, parallel/, oracle/match.py and compat/ included."""
 
 import ast
 import gzip
@@ -90,6 +90,15 @@ def test_import_scan_covers_the_sharded_slice():
             "audfprint_torch/parallel/sharded.py",
             "audfprint_torch/parallel/multihost.py",
             "audfprint_torch/oracle/match.py", "chip_smoke.py"} <= rels
+
+
+def test_import_scan_covers_compat():
+    """The upstream-named surface (compat/) is among the sources scanned,
+    every one of its seven modules."""
+    rels = set(_port_sources())
+    assert {f"audfprint_torch/compat/{m}.py" for m in (
+        "__init__", "audfprint", "audfprint_analyze", "audfprint_match",
+        "audio_read", "hash_table", "stft")} <= rels
 
 
 def test_import_scan_sees_nested_imports():
