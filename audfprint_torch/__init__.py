@@ -9,9 +9,9 @@ prng}, oracle/, native/audfp_host.cpp).
 
 Every public entry point takes an explicit `device`; `None` means CUDA and
 raises when CUDA is missing (utils.device.resolve_device).  The
-hand-written CUDA kernels (csrc/prune.cu: K1 and K1f; csrc/hpf.cu: K2)
-build with nvcc at first use; on CPU tensors their plain PyTorch versions
-run instead.
+hand-written CUDA kernels (csrc/prune.cu: K1 and K1f; csrc/hpf.cu: K2;
+csrc/pair.cu: K3) build with nvcc at first use; on CPU tensors their
+plain PyTorch versions run instead.
 """
 
 __version__ = "0.1.0"

@@ -42,6 +42,7 @@ from audfprint_torch.match.matcher import Matcher, slice_hash_windows
 from audfprint_torch.models.analyzer import Analyzer
 from audfprint_torch.models.ingest import DeviceIngest
 from audfprint_torch.ops import cuda_peaks as CP
+from audfprint_torch.ops import landmarks as L
 from audfprint_torch.ops import spectro as SP
 from audfprint_torch.utils.device import resolve_device
 
@@ -826,7 +827,8 @@ def main(argv=None, device=None) -> int:
             stages.add_meta(command=cmd, n_files=n_files,
                             total_dur_s=round(tot_dur, 3),
                             elapsed_s=round(elapsed, 3),
-                            kernel_launches={**SP.launches, **CP.launches})
+                            kernel_launches={**SP.launches, **CP.launches,
+                                             **L.launches})
             stages.dump_json(args.json_metrics)
     finally:
         if prof is not None:         # a command raised: end the session

@@ -25,7 +25,7 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("hpf.cu", "prune.cu")
+SOURCES = ("hpf.cu", "pair.cu", "prune.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "audfprint_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,6 +46,9 @@ _SIGNATURES = {
     "prune_fwd_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # m0, env_in, gvec, lpos, lval, env_out, B, T, F, k, a_dec, stream
     "prune_fwd_carry": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # bins, valid, hashes, lvalid, B, T, K, fanout, mindt, targetdt,
+    # targetdf, stream
+    "pair_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -31,23 +31,32 @@ Phases (any failure exits non-zero before the result line):
      (dense, F = 200, F = 258, a chunk ending inside a ring stage, one
      shorter than a stage, an empty one, F = 1024, 22,000 frames of
      silence) and chunks of 1001, 777 and 2414 frames against one pass at
-     F = 256 and 258.  Each kernel's time (device time of back-to-back
-     launches, cuda_ms) beside its bound (bytes over 3.35 TB/s or float32
-     operations over 67 TFLOP/s, whichever is longer)
+     F = 256 and 258.  Then K3 (pair_scan) against its plain version, bit
+     for bit on times, hashes and lvalid: PAIR_CASES (fanouts 0-6, 512
+     bins with K = 8, T = 0, 1, mindt, targetdt and 2,100, no valid slot,
+     slots dense within targetdf, partners at |df| = targetdf - 1 and
+     targetdf, partners past the last frame, a listen query, mindt 0 and
+     -2), the config-2 batch shape 256 x 1535 x 5, and a 2 h file's
+     1 x 310,078 x 5 int16 slots through streaming.pair_kept_slots; K3
+     timed at the batch, a query and the streamed shape.  Each kernel's
+     time (device time of back-to-back launches, cuda_ms) beside its bound
+     (bytes over 3.35 TB/s, or float32 operations over 67 TFLOP/s or int32
+     operations over 16.7 TOP/s, whichever is longer)
   6. the main path at BASELINE config 2 ("1k-track DB of 30s clips; clean
      exact-segment queries"): 1,000 synthetic music-like 30 s tracks from
      a fixed seed -> Analyzer(device="cuda") -> host HashTable (2^20 x 100)
      -> device table -> 64 clean 10 s hop-aligned queries through the fused
      Matcher path; top-1 self >= 0.95, hash Jaccard > 0.9 against the
-     oracle for 4 tracks, and both kernels launched on this path; K1
-     timed on the candidate map of one (256 x 30 s) batch of the corpus
+     oracle for 4 tracks, and K1, K2 and K3 launched on this path; K1
+     timed on the candidate map of one (256 x 30 s) batch of the corpus,
+     K3 held against its plain version and timed on its peak slots
   7. the fused device store (models/ingest.DeviceIngest) over the same
      1,000 tracks: table, counts and hashesperid equal the host store's
      bit for bit; ingest rate against fingerprint + host store
   8. streaming: K1f timed on an 8,192-frame chunk of a seeded 7,200 s
-     WAV, then the WAV through Analyzer's streamed route
-     (K1f and K2 launched, time, device memory peak), equal at 8,192- and
-     2,048-frame chunks, Jaccard > 0.9 against the in-memory path; then
+     WAV, then the WAV through Analyzer's streamed route (K1f, K2 and K3
+     launched, time, device memory peak), equal at 8,192- and 2,048-frame
+     chunks, Jaccard > 0.9 against the in-memory path; then
      `new` on it and two songs as a subprocess (the long file must stream)
      and 10 s excerpts from 0:30, 59:00 and 1:58:00 matched at rank 0 with
      the offset of their start modulo maxtime
@@ -57,7 +66,8 @@ Phases (any failure exits non-zero before the result line):
      databases, rank-0 match), `match --windowed 4 --window-hop 2` on a
      recording of two songs, `warmup` then `match --speed-sweep 4` on a
      +4% query, and `match --profile DIR -I --sonify` (a trace naming
-     prune_fwd_bwd and hpf_scan, the sonify WAV); then the golden CLI
+     prune_fwd_bwd, hpf_scan and pair_scan, and its count of kernel
+     events; the sonify WAV); then the golden CLI
      session of tests/golden/cli_session.txt on the card, reporting
      differing lines
  10. BASELINE config 3 ("Noisy + resampled 5s queries with --shifts 4 /
@@ -110,8 +120,9 @@ Phases (any failure exits non-zero before the result line):
      test_edge_cases, test_fuzz_compat and test_accuracy), run right after
      phase 5: audfprint_torch.compat's Analyzer() and Matcher() with no
      device land on the card, glob2hashtable over four WAVs (oracle
-     Jaccard > 0.9) and match_file at rank 0; K1, K1f and K2's wrappers at
-     B = 0 and T = 0 return empty results without a launch; empty, short
+     Jaccard > 0.9) and match_file at rank 0; K1, K1f, K2 and K3's
+     wrappers at B = 0 and T = 0 (K3 also at fanout 0) return empty
+     results without a launch; empty, short
      and silent audio give no hashes, an empty DB and empty queries no
      rows (Matcher and the fused path); 8/16/24/32-bit, stereo and
      truncated WAVs decode through the native batch loader to the host
@@ -126,7 +137,8 @@ Phases (any failure exits non-zero before the result line):
 
 Each path of phases 6-8, 10-13, 15 and 16 runs with the kernels' launch
 counts set to 0 just before it and read just after; the kernel record
-lists them by path.
+lists them by path.  Every one of these paths fingerprints, so each must
+launch K3.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON record and the one before that the nvidia-smi line.
 The script imports no JAX.
@@ -277,17 +289,21 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
+# float32 operations/s outside the tensor cores; and int32 operations/s,
+# derived from the Hopper white paper's 64 INT32 lanes an SM, 132 SMs at
+# the 1.98 GHz boost clock (the data sheet gives no int32 rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
-def bound(nbytes: float, nops: float) -> tuple:
+def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S
+          ) -> tuple:
     """(bound_ms, bound_by): the least time the card could take for a
     function that moves nbytes (each input read once, each output written
-    once) and does nops float32 operations."""
+    once) and does nops operations at ops_per_s (float32 by default)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = nops / F32_OPS_PER_S * 1e3
+    to = nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -415,6 +431,62 @@ def _k2_input(rng, b: int, t: int, F: int, kind: str) -> np.ndarray:
         x = np.where(rng.random(x.shape) < 0.7, rng.choice(edge, x.shape),
                      x * np.float32(1e-37)).astype(np.float32)
     return x
+
+
+# K3 cases: (name, B, T, K, PipelineConfig fields, kind).  The fanouts of
+# the presets and -F, the 512-bin configuration (K = 8, f1 > 255 masked),
+# T = 0, 1, mindt, targetdt and longer than a 2047-frame bucket, inputs
+# with no valid slot, slots dense within targetdf (the fanout fills at
+# d = mindt), partners at |df| = targetdf - 1 and targetdf (strict), valid
+# peaks only in the last frames (the walk meets t + d >= T), a listen
+# query, and mindt 0 and -2 (a negative dt reads where JAX's
+# dynamic_slice lands, landmarks.slice_start).  tests/test_torch_pairing.py
+# holds each against JAX on the CPU; the card holds K3 against its plain
+# version on each.
+PAIR_CASES = [("default", 2, 64, 5, {}, "random"),
+              ("fanout 0", 2, 64, 5, {"maxpairsperpeak": 0}, "random"),
+              ("fanout 1", 2, 64, 5, {"maxpairsperpeak": 1}, "random"),
+              ("fanout 2", 2, 64, 5, {"maxpairsperpeak": 2}, "random"),
+              ("fanout 6", 2, 64, 5, {"maxpairsperpeak": 6}, "random"),
+              ("512 bins, K=8", 2, 80, 8,
+               {"n_fft": 1024, "n_hop": 512, "maxpksperframe": 8}, "random"),
+              ("T=0", 2, 0, 5, {}, "random"),
+              ("T=1", 2, 1, 5, {}, "random"),
+              ("T=mindt", 2, 2, 5, {}, "random"),
+              ("T=targetdt", 2, 63, 5, {}, "random"),
+              ("T=2100", 1, 2100, 5, {}, "random"),
+              ("listen query", 1, 431, 5, {}, "random"),
+              ("all invalid", 2, 64, 5, {}, "invalid"),
+              ("dense within targetdf", 2, 64, 5, {}, "dense"),
+              ("|df| = targetdf - 1 and targetdf", 2, 40, 5, {}, "edge_df"),
+              ("partners in the last frames", 2, 40, 5, {}, "tail"),
+              ("mindt=0", 2, 64, 5, {"mindt": 0}, "random"),
+              ("mindt=-2", 2, 64, 5, {"mindt": -2}, "random")]
+
+
+def pair_input(rng, b: int, t: int, k: int, n_bins: int, kind: str,
+               targetdf: int = 31):
+    """K3 input slots from a seed: (bins (b, t, k) int32 ascending per
+    frame, valid (b, t, k) bool).  Random: bins uniform over n_bins, 60 %
+    valid.  Invalid: no valid slot.  Dense: every slot valid, bins within
+    10 of 100.  Edge_df: every frame [f - targetdf, f - targetdf + 1, f,
+    f + targetdf - 1, f + targetdf] at f = 100, 70 % valid.  Tail: valid
+    (80 %) only in the last 12 frames."""
+    bins = np.sort(rng.integers(0, n_bins, (b, t, k)), axis=-1)
+    valid = rng.random((b, t, k)) < 0.6
+    if kind == "invalid":
+        valid[:] = False
+    elif kind == "dense":
+        bins = 100 + np.sort(rng.integers(0, 10, (b, t, k)), axis=-1)
+        valid[:] = True
+    elif kind == "edge_df":
+        bins = np.broadcast_to(100 + np.array(
+            [-targetdf, 1 - targetdf, 0, targetdf - 1, targetdf]), (b, t, k))
+        valid = rng.random((b, t, k)) < 0.7
+    elif kind == "tail":
+        valid = (rng.random((b, t, k)) < 0.8) \
+            & (np.arange(t) >= t - 12)[None, :, None]
+    return bins.astype(np.int32), valid
 
 
 def _same_bits(torch, a, b) -> bool:
@@ -609,6 +681,185 @@ def phase_kernels(torch, rec: dict) -> None:
                                 plain_ms=k1_plain, bound_ms=k1_b[0],
                                 bound_by=k1_b[1], library_ms=None,
                                 rounds_per_frame=k1_stats[1])
+
+
+def k3_work(torch, bins, valid, cfg) -> tuple:
+    """(partner slots examined, partners appended) by K3's walk on these
+    inputs (mindt >= 0): per valid anchor, the slots up to its fanout-th
+    qualifying partner, or every slot of its frames t + d < T when it has
+    fewer.  Counted with tensor code over chunks of frames."""
+    B, T, K = bins.shape
+    fan = cfg.maxpairsperpeak
+    dev = bins.device
+    d = torch.arange(cfg.mindt, cfg.targetdt, device=dev)
+    nd = d.numel()
+    bp = torch.cat([bins, bins.new_zeros((B, cfg.targetdt, K))], 1)
+    vp = torch.cat([valid, valid.new_zeros((B, cfg.targetdt, K))], 1)
+    examined = appended = 0
+    step = max(1, (1 << 26) // max(1, B * K * nd * K))
+    for t0 in range(0, T, step):
+        t = torch.arange(t0, min(T, t0 + step), device=dev)
+        n = t.numel()
+        fr = t[:, None] + d[None, :]                          # (n, nd)
+        ok = (valid[:, t0:t0 + n, :, None]
+              & vp[:, fr].reshape(B, n, 1, nd * K)
+              & ((bp[:, fr].reshape(B, n, 1, nd * K)
+                  - bins[:, t0:t0 + n, :, None]).abs() < cfg.targetdf))
+        c = ok.cumsum(-1, dtype=torch.int32)                  # (B, n, K, nd K)
+        n_in = ((T - t - cfg.mindt).clamp(0, nd) * K)[None, :, None]
+        seen = torch.where(c[..., -1] >= fan,
+                           (c >= fan).to(torch.int32).argmax(-1) + 1, n_in)
+        v = valid[:, t0:t0 + n]
+        examined += int(seen[v].sum().item())
+        appended += int(c[..., -1].clamp(max=fan)[v].sum().item())
+    return examined, appended
+
+
+def k3_bound(torch, bins, valid, cfg) -> tuple:
+    """K3's bound on these inputs: bins (int32) and valid read, hashes
+    (int32) and lvalid written, each once; 4 int32 operations a partner
+    slot examined (difference, absolute value, compare, valid) and 4 a
+    partner appended (the pack).  Returns (bound_ms, bound_by, partner
+    slots examined per valid anchor)."""
+    n = bins.numel()
+    fan = cfg.maxpairsperpeak
+    examined, appended = k3_work(torch, bins, valid, cfg)
+    bms, bby = bound(4 * n + n + 4 * n * fan + n * fan,
+                     4 * examined + 4 * appended, INT32_OPS_PER_S)
+    return bms, bby, examined / max(1, int(valid.sum().item()))
+
+
+@contextlib.contextmanager
+def plain_pairing():
+    """Within the block, landmarks.slots_to_hashes is its plain version:
+    a caller such as streaming.pair_kept_slots pairs without K3."""
+    from audfprint_torch.ops import landmarks as L
+
+    k3 = L.slots_to_hashes
+    L.slots_to_hashes = L.slots_to_hashes_plain
+    try:
+        yield
+    finally:
+        L.slots_to_hashes = k3
+
+
+def _k3_equal(torch, bins, valid, cfg):
+    """K3 and its plain version on the same slots: (equal in dtype and
+    value on times, hashes and lvalid, max |hash difference|, K3's
+    output)."""
+    from audfprint_torch.ops import landmarks as L
+
+    got = L.slots_to_hashes(bins, valid, cfg)
+    want = L.slots_to_hashes_plain(bins, valid, cfg)
+    torch.cuda.synchronize()
+    same = all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
+    err = float((got[1] - want[1]).abs().max().item()) \
+        if got[1].numel() else 0.0
+    return same, err, got
+
+
+def stream_slots(rng, t: int, k: int, n_bins: int = 256):
+    """Streamed-route pairing inputs from a seed, as models/streaming.py
+    builds them: slots (1, t, k) int16, kept peak bin + 1 in ascending
+    order and 0 for an empty slot (0..k peaks a frame), and anchors (1, A)
+    int64, the flat t * k + slot index of every kept peak."""
+    n = rng.integers(0, k + 1, t)
+    keys = (np.sort(rng.integers(0, n_bins - k + 1, (t, k)), axis=1)
+            + np.arange(k))                          # ascending, distinct
+    slots = np.where(np.arange(k) < n[:, None], keys + 1,
+                     0).astype(np.int16)[None]
+    anchors = np.flatnonzero(slots[0].reshape(-1) > 0)[None]
+    return slots, anchors
+
+
+def phase_pair(torch, rec: dict, dev) -> None:
+    """K3 (pair_scan) against its plain version, bit for bit on times,
+    hashes and lvalid: PAIR_CASES, the config-2 batch shape (256 x 1535
+    x 5) with random sorted slots, and a streamed 2 h file's shape through
+    streaming.pair_kept_slots; K3 timed at the batch, a listen query and
+    the streamed shape beside its bound."""
+    from audfprint_torch.ops.config import PipelineConfig
+    from audfprint_torch.ops import landmarks as L
+    from audfprint_torch.ops import streaming as ST
+
+    rng = np.random.default_rng(SEED + 8)
+    for name, b, t, k, fields, kind in PAIR_CASES:
+        ccfg = PipelineConfig(**fields)
+        bins, valid = (torch.from_numpy(a).to(dev) for a in pair_input(
+            rng, b, t, k, ccfg.n_bins, kind, ccfg.targetdf))
+        same, _err, got = _k3_equal(torch, bins, valid, ccfg)
+        require(same, f"K3 differs from its plain version, case {name}")
+        print(f"K3 pair_scan case {name} ({b},{t},{k}), fanout "
+              f"{ccfg.maxpairsperpeak}: bit-exact vs plain "
+              f"({int(got[2].sum())} landmarks)")
+
+    cfg = PipelineConfig()
+    slots, anchors = stream_slots(rng, 310078, cfg.maxpksperframe)
+    s_dev, a_dev = (torch.from_numpy(a).to(dev) for a in (slots, anchors))
+    got = ST.pair_kept_slots(s_dev, a_dev, cfg)
+    with plain_pairing():
+        want = ST.pair_kept_slots(s_dev, a_dev, cfg)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "pair_kept_slots through K3 differs "
+                                    "from the plain pairing at 1 x 310078")
+    print(f"K3 through pair_kept_slots (1,310078,5) int16 slots, "
+          f"{anchors.shape[1]} anchors: equal to the plain pairing "
+          f"({int((got >> 20).sum())} landmarks)")
+
+    out, worst = {}, 0.0
+    for key, b, t in (("", 256, 1535), ("listen_", 1, 431),
+                      ("stream_", 1, 310078)):
+        if key == "stream_":
+            bins = torch.clamp(s_dev.to(torch.int32) - 1, min=0)
+            valid = s_dev > 0
+        else:
+            bins, valid = (torch.from_numpy(a).to(dev) for a in pair_input(
+                rng, b, t, cfg.maxpksperframe, cfg.n_bins, "random"))
+            same, err, _got = _k3_equal(torch, bins, valid, cfg)
+            worst = max(worst, err)
+            require(same, f"K3 differs from its plain version at ({b},{t},5)")
+        ms = cuda_ms(lambda: L.slots_to_hashes(bins, valid, cfg), 20)
+        plain = cuda_ms(lambda: L.slots_to_hashes_plain(bins, valid, cfg), 1)
+        bms, bby, per = k3_bound(torch, bins, valid, cfg)
+        out.update({f"{key}ms": ms, f"{key}plain_ms": plain,
+                    f"{key}bound_ms": bms, f"{key}bound_by": bby,
+                    f"{key}examined_per_anchor": per})
+        print(f"K3 pair_scan ({b},{t},5): kernel {ms:.4f} ms, plain "
+              f"{plain:.1f} ms, bound {bms:.5f} ms ({bby}); {per:.2f} "
+              f"partner slots examined per valid anchor")
+    rec["pair_scan"] = dict(max_abs_err=worst, library_ms=None, **out)
+
+
+def pair_on_real(torch, rec: dict, audio: np.ndarray, lens: np.ndarray
+                 ) -> None:
+    """K3 against its plain version, bit for bit, and timed, on the peak
+    slots of a (256 x 30 s) batch of phase 6's corpus."""
+    from audfprint_torch.ops.config import PipelineConfig
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import landmarks as L
+    from audfprint_torch.ops import pipeline as pipe
+    from audfprint_torch.ops import spectro as SP
+
+    cfg = PipelineConfig()
+    ln = torch.as_tensor(lens, device="cuda")
+    nf = pipe.frame_count_device(ln, cfg)
+    white = SP.whitened_logmag(torch.as_tensor(audio, device="cuda"), nf, cfg)
+    bins, valid = CP.find_peaks_slots_fused(white, nf, cfg)
+    same, err, got = _k3_equal(torch, bins, valid, cfg)
+    require(same, "K3 differs from its plain version on config 2's peaks")
+    ms = cuda_ms(lambda: L.slots_to_hashes(bins, valid, cfg), 20)
+    bms, _bby, per = k3_bound(torch, bins, valid, cfg)
+    share = float(valid.float().mean().item())
+    print(f"K3 pair_scan on config 2's peak slots {tuple(bins.shape)}: "
+          f"bit-exact vs plain ({int(got[2].sum())} landmarks); kernel "
+          f"{ms:.4f} ms, bound {bms:.5f} ms; {share:.3f} of the slots valid, "
+          f"{per:.2f} partner slots examined per valid anchor")
+    rec["pair_scan"].update(real_shape=list(bins.shape), real_ms=ms,
+                            real_bound_ms=bms, real_valid_share=share,
+                            real_examined_per_anchor=per)
+    rec["pair_scan"]["max_abs_err"] = max(rec["pair_scan"]["max_abs_err"],
+                                          err)
 
 
 def sm_clock_mhz(torch) -> float:
@@ -875,8 +1126,6 @@ def phase_main_path(torch, rec: dict) -> dict:
     from audfprint_torch.oracle import analyze as oa
     from audfprint_torch.match.matcher import Matcher
     from audfprint_torch.models.analyzer import Analyzer
-    from audfprint_torch.ops import cuda_peaks as CP
-    from audfprint_torch.ops import spectro as SP
 
     n_tracks, dur, qdur, n_q = 1000, 30.0, 10.0, 64
     rng = np.random.default_rng(SEED + 2)
@@ -899,9 +1148,10 @@ def phase_main_path(torch, rec: dict) -> dict:
     print("fingerprint stages, device ms per (256 x 30 s) batch: "
           + json.dumps({k: round(v, 3) for k, v in breakdown.items()}))
     prune_on_real(torch, rec, batch, lens, carry=False)
+    pair_on_real(torch, rec, batch, lens)
 
     # ---- the main path, counted ----
-    _counts_zero(SP, CP)
+    _counts_zero()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -921,7 +1171,7 @@ def phase_main_path(torch, rec: dict) -> dict:
     t0 = time.time()
     res, nhash = matcher.match_samples_fused(an, ht, queries)
     t_match = time.time() - t0
-    launches = _counts(SP, CP)
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     in_use = torch.cuda.memory_allocated()
 
@@ -958,7 +1208,8 @@ def phase_main_path(torch, rec: dict) -> dict:
           f"{in_use / 2**20:.1f} MiB; launches on the main path {launches}")
     require(top1 >= 0.95, f"top-1 self {top1} < 0.95")
     require(min(jac) > 0.9, f"oracle Jaccard {min(jac)} <= 0.9")
-    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
+            and launches["pair_scan"] > 0,
             f"a kernel was not launched on the main path: {launches}")
     rec["_paths"]["config2"] = launches
     ctx = dict(tracks=tracks, ht=ht, hashes=hashes, an=an, matcher=matcher,
@@ -1060,9 +1311,7 @@ def phase_sharded(torch, rec, ctx, dev, ndev: int = 4, chunk: int = 256,
     from audfprint_torch.models.analyzer import Analyzer
     from audfprint_torch.models.ingest import (DeviceIngest,
                                                sharded_fused_ingest_fn)
-    from audfprint_torch.ops import cuda_peaks as CP
     from audfprint_torch.ops import pipeline as pipe
-    from audfprint_torch.ops import spectro as SP
     from audfprint_torch.parallel import sharded
 
     ht, an, tracks = ctx["ht"], ctx["an"], ctx["tracks"]
@@ -1081,7 +1330,7 @@ def phase_sharded(torch, rec, ctx, dev, ndev: int = 4, chunk: int = 256,
     require(mesh.size == ndev and all(d.type == torch.device(dev).type
                                       for d in mesh.devices),
             f"the mesh is not {ndev} shards of {dev}: {mesh}")
-    _counts_zero(SP, CP)
+    _counts_zero()
 
     # ---- the replicated store
     def store_all():
@@ -1253,9 +1502,10 @@ def phase_sharded(torch, rec, ctx, dev, ndev: int = 4, chunk: int = 256,
            f"; {chunk} x 30 s tracks in {ndev} blocks, equal to one "
            f"fingerprint_batch bit for bit")
 
-    launches = _counts(SP, CP)
+    launches = _counts()
     print(f"sharded path: launches {launches}")
-    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
+            and launches["pair_scan"] > 0,
             f"a kernel was not launched on the sharded path: {launches}")
     rec["_paths"]["sharded"] = launches
     return {"sharded": out}
@@ -1391,14 +1641,24 @@ def _jaccard(a: np.ndarray, b: np.ndarray):
     return len(sa & sb) / max(1, len(sa | sb)), len(sa ^ sb)
 
 
-def _counts_zero(SP, CP) -> None:
-    for d in (SP.launches, CP.launches):
+def _launch_counters() -> tuple:
+    """The kernels' launch counts: K2 (spectro), K1 and K1f (cuda_peaks),
+    K3 (landmarks)."""
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import landmarks as L
+    from audfprint_torch.ops import spectro as SP
+
+    return SP.launches, CP.launches, L.launches
+
+
+def _counts_zero() -> None:
+    for d in _launch_counters():
         for key in d:
             d[key] = 0
 
 
-def _counts(SP, CP) -> dict:
-    return {**SP.launches, **CP.launches}
+def _counts() -> dict:
+    return {k: v for d in _launch_counters() for k, v in d.items()}
 
 
 def _cli(argv: list, timeout: int = 900) -> str:
@@ -1420,8 +1680,6 @@ def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
     then through the CLI as subprocesses with rank-0 matches of excerpts."""
     from audfprint_torch.utils.audio import audio_write_wav
     from audfprint_torch.models.analyzer import Analyzer
-    from audfprint_torch.ops import cuda_peaks as CP
-    from audfprint_torch.ops import spectro as SP
 
     d = paths["dir"]
     rng = np.random.default_rng(SEED + 4)
@@ -1450,17 +1708,18 @@ def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
     an = Analyzer(device=dev)
     an.stream_chunk_frames = 8192
     # ---- the streamed path, counted ----
-    _counts_zero(SP, CP)
+    _counts_zero()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     h8192 = an.wavfile2hashes_streaming(long_wav)
     torch.cuda.synchronize()
     t_stream = time.time() - t0
-    launches = _counts(SP, CP)
+    launches = _counts()
     peak_stream = torch.cuda.max_memory_allocated()
-    require(launches["prune_fwd_carry"] > 0 and launches["hpf_scan"] > 0,
-            f"the streamed route did not launch K1f and K2: {launches}")
+    require(launches["prune_fwd_carry"] > 0 and launches["hpf_scan"] > 0
+            and launches["pair_scan"] > 0,
+            f"the streamed route did not launch K1f, K2 and K3: {launches}")
     dur = an.soundfiledur
     print(f"streamed {dur:.1f} s: {len(h8192)} hashes in {t_stream:.3f} s = "
           f"{dur / t_stream:.1f} audio-s/s; device memory peak "
@@ -1502,7 +1761,8 @@ def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
         cli_launches = json.load(f)["kernel_launches"]
     print("CLI new (subprocess, " + f"{t_cli:.1f} s):\n" + out.rstrip())
     require(cli_launches.get("prune_fwd_carry", 0) > 0
-            and cli_launches.get("hpf_scan", 0) > 0,
+            and cli_launches.get("hpf_scan", 0) > 0
+            and cli_launches.get("pair_scan", 0) > 0,
             f"CLI new did not stream the long WAV: launches {cli_launches}")
     out = _cli(["match", "-d", db, *queries])
     print("CLI match (subprocess):\n" + out.rstrip())
@@ -1532,8 +1792,6 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
     from audfprint_torch.index.hash_table import HashTable
     from audfprint_torch.models.analyzer import Analyzer
     from audfprint_torch.models.ingest import DeviceIngest
-    from audfprint_torch.ops import cuda_peaks as CP
-    from audfprint_torch.ops import spectro as SP
 
     an = Analyzer(device=dev)
     names = [f"track{i}" for i in range(len(tracks))]
@@ -1544,7 +1802,7 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
     del warm
     ht = HashTable()
     # ---- the device-store path, counted ----
-    _counts_zero(SP, CP)
+    _counts_zero()
     torch.cuda.synchronize()
     t0 = time.time()
     ing = DeviceIngest(ht, an)
@@ -1554,7 +1812,7 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
                                            tracks[i: i + chunk])], print))
     ing.finalize()
     t_dev = time.time() - t0
-    launches = _counts(SP, CP)
+    launches = _counts()
     same = (np.array_equal(ht.table, ht_host.table)
             and np.array_equal(ht.counts, ht_host.counts)
             and np.array_equal(ht.hashesperid, ht_host.hashesperid)
@@ -1565,7 +1823,8 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
           f"{audio / t_two_stage:.1f} audio-s/s); table, counts and "
           f"hashesperid equal the host store's: {same}; launches {launches}")
     require(same, "the device store's table differs from the host store's")
-    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
+            and launches["pair_scan"] > 0,
             f"a kernel was not launched on the device-store path: {launches}")
     rec["_paths"]["device_store"] = launches
     return {"device_store_audio_s_per_s": audio / t_dev,
@@ -1646,8 +1905,6 @@ def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
     from audfprint_torch.match.matcher import Matcher, sweep_factors
     from audfprint_torch.models import presets
     from audfprint_torch.models.analyzer import Analyzer
-    from audfprint_torch.ops import cuda_peaks as CP
-    from audfprint_torch.ops import spectro as SP
 
     t0 = time.time()
     tracks = _in_processes(harmonic_track, range(n_tracks),
@@ -1677,7 +1934,7 @@ def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
                                 base_hashes=warm)
     _sync(torch, dev)
     # ---- config 3 with the sweep, counted ----
-    _counts_zero(SP, CP)
+    _counts_zero()
     curve = {}
     for name, kw in CONFIG3_CONDITIONS:
         queries = [_degrade(c, rng, **kw) for c in clean]
@@ -1715,7 +1972,7 @@ def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
                     f"winning corrections {wins}")
         curve[name] = row
         print(msg)
-    launches = _counts(SP, CP)
+    launches = _counts()
     print(f"config 3: {1 + len(sweep_factors(4.0))} variants per swept "
           f"query; launches {launches}")
     for name in ("clean", "snr10", "snr5", "lowpass3k"):
@@ -1729,7 +1986,8 @@ def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
         require(curve[name]["sweep_recall"] > curve[name]["recall"],
                 f"config 3 {name}: the sweep did not recover it "
                 f"{curve[name]}")
-    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
+            and launches["pair_scan"] > 0,
             f"a kernel was not launched on the config 3 path: {launches}")
     rec["_paths"]["config3_sweep"] = launches
     return {"config3_curve": curve}
@@ -1746,8 +2004,6 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
     from audfprint_torch.utils.timing import Stages
     from audfprint_torch import cli
     from audfprint_torch.match.matcher import slice_hash_windows
-    from audfprint_torch.ops import cuda_peaks as CP
-    from audfprint_torch.ops import spectro as SP
 
     tracks, ht, matcher = ctx["tracks"], ctx["ht"], ctx["matcher"]
     rng = np.random.default_rng(SEED + 6)
@@ -1791,7 +2047,7 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
     wins = slice_hash_windows(h, dur, win, SR / 256.0, hop)
     lines: list = []
     # ---- the windowed CLI path, counted ----
-    _counts_zero(SP, CP)
+    _counts_zero()
     base = _reset_peak(torch, dev)
     t0 = time.time()
     n_files, _tot = cli.do_match(ht, an, matcher, [wav], args, lines.append,
@@ -1799,7 +2055,7 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
     _sync(torch, dev)
     wall = time.time() - t0
     peak_all = _peak_mib(torch, dev, base)
-    launches = _counts(SP, CP)
+    launches = _counts()
 
     # the vote's memory envelope: the sub-batch the matcher picks for
     # these windows, and the whole do_match's peak against its budget
@@ -1849,8 +2105,9 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
     require(torch.device(dev).type != "cuda" or peak_all * 2**20 <= budget,
             f"broadcast: do_match peaked {peak_all:.1f} MiB above resident, "
             f"past the vote's {budget / 2**20:.1f} MiB budget")
-    require(launches["prune_fwd_carry"] > 0 and launches["hpf_scan"] > 0,
-            f"the broadcast log did not stream through K1f and K2: "
+    require(launches["prune_fwd_carry"] > 0 and launches["hpf_scan"] > 0
+            and launches["pair_scan"] > 0,
+            f"the broadcast log did not stream through K1f, K2 and K3: "
             f"{launches}")
     # a seeded sample of the windowed rows against the oracle, bit for bit
     pick = np.random.default_rng(SEED + 7).choice(
@@ -1883,8 +2140,6 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
     from audfprint_torch.utils.audio import audio_write_wav
     from audfprint_torch.utils.timing import Stages
     from audfprint_torch import cli
-    from audfprint_torch.ops import cuda_peaks as CP
-    from audfprint_torch.ops import spectro as SP
 
     ht, matcher = ctx["ht"], ctx["matcher"]
     paths = []
@@ -1950,7 +2205,7 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
     cli.do_match = counting
     try:
         # ---- the listen loop, counted ----
-        _counts_zero(SP, CP)
+        _counts_zero()
         th = threading.Thread(target=feeder, daemon=True)
         th.start()
         n_served, _dur = cli.do_listen(ht, an, matcher, args, report,
@@ -1961,7 +2216,7 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
     finally:
         cli.do_match = real
         reader.close()
-    launches = _counts(SP, CP)
+    launches = _counts()
     require(not errors and not th.is_alive(), f"listen feeder: {errors}")
     served = [ln for _, ln in got]
     batch: list = []
@@ -1996,7 +2251,8 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
             f"the missing path was not reported once: {errs}")
     require(len(backlog_calls) < n_ok,
             f"the backlog took {len(backlog_calls)} do_match calls")
-    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
+            and launches["pair_scan"] > 0,
             f"a kernel was not launched on the listen path: {launches}")
     rec["_paths"]["listen"] = launches
     return {"listen_p50_ms": p50, "listen_max_ms": lat_ms[-1],
@@ -2012,8 +2268,6 @@ def phase_wide(torch, rec, ctx, dev, hashbits=None) -> dict:
     from audfprint_torch.index.hash_table import HashTable
     from audfprint_torch.index import device_table as DT
     from audfprint_torch.match.matcher import Matcher
-    from audfprint_torch.ops import cuda_peaks as CP
-    from audfprint_torch.ops import spectro as SP
 
     hashes, queries, qsel = ctx["hashes"], ctx["queries"], ctx["qsel"]
     ids = [(1 << 18) + 769 * i for i in range(len(hashes))]
@@ -2067,18 +2321,19 @@ def phase_wide(torch, rec, ctx, dev, hashbits=None) -> dict:
     m.match_samples_fused(an, ht, queries[:8])     # upload + warm shapes
     _sync(torch, dev)
     # ---- the fused path on the wide table, counted ----
-    _counts_zero(SP, CP)
+    _counts_zero()
     t0 = time.time()
     res, _nh = m.match_samples_fused(an, ht, queries)
     _sync(torch, dev)
     t_match = time.time() - t0
-    launches = _counts(SP, CP)
+    launches = _counts()
     ok = [len(r) > 0 and int(r[0][0]) == ids[i] for r, i in zip(res, qsel)]
     print(f"wide table match: {sum(ok)} of {len(ok)} queries at rank 0 with "
           f"their sparse ids, {len(queries) / t_match:.2f} q/s (fused, "
           f"warm); launches {launches}")
     require(all(ok), "a query missed its sparse id on the wide table")
-    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
+            and launches["pair_scan"] > 0,
             f"a kernel was not launched on the wide path: {launches}")
     rec["_paths"]["wide"] = launches
     return {"wide_table_mib": tab_mib, "wide_store_s": t_store,
@@ -2247,7 +2502,8 @@ def phase_cli_ndev(d, wavs, query, rank0, ndev: int = 4) -> dict:
                 and a.names == b.names,
                 f"the --ndev {ndev} database {k} differs from --ndev 1's")
     require(launches[ndev].get("prune_fwd_bwd", 0) > 0
-            and launches[ndev].get("hpf_scan", 0) > 0,
+            and launches[ndev].get("hpf_scan", 0) > 0
+            and launches[ndev].get("pair_scan", 0) > 0,
             f"new --ndev {ndev} did not launch the kernels: {launches}")
     print(f"CLI --ndev {ndev}: lines and both saved databases equal --ndev "
           f"1's; new --ndev {ndev} launches {launches[ndev]} (--ndev 1: "
@@ -2327,7 +2583,7 @@ def phase_cli_serving(d, db, wavs, songs, query, q, rank0) -> dict:
         events = json.load(f).get("traceEvents", [])
     names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     kern = {k: sum(k in n for n in names)
-            for k in ("prune_fwd_bwd", "hpf_scan")}
+            for k in ("prune_fwd_bwd", "hpf_scan", "pair_scan")}
     print(f"--profile trace: {len(events)} events, {len(names)} kernel "
           f"events; by name {kern}")
     require(min(kern.values()) > 0,
@@ -2339,7 +2595,8 @@ def phase_cli_serving(d, db, wavs, songs, query, q, rank0) -> dict:
             or "illustrate_match: wrote" in out, "-I printed nothing")
     return {"cli_wide_same_db": same_wide, "cli_warmup_wall_s": t_warm,
             "cli_match_after_warmup_wall_s": t_after,
-            "profile_kernel_events": kern}
+            "profile_kernel_events": kern,
+            "profile_kernel_events_total": len(names)}
 
 
 # ---- the JAX package's behavioural contract on the card -------------------
@@ -2414,9 +2671,11 @@ def _contract_compat(torch, dev, d) -> dict:
 
 
 def _contract_zero_size(torch, dev) -> None:
-    """The kernels' wrappers at B = 0 and T = 0 return empty results
-    without a launch (their guards, not a caught error)."""
+    """The kernels' wrappers at B = 0 and T = 0 (and K3 at fanout 0)
+    return empty results without a launch (their guards, not a caught
+    error)."""
     from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.ops import landmarks as L
     from audfprint_torch.ops import peaks as PK
     from audfprint_torch.ops import spectro as SP
     from audfprint_torch.ops.config import PipelineConfig
@@ -2424,7 +2683,14 @@ def _contract_zero_size(torch, dev) -> None:
     cfg = PipelineConfig()
     F, k = cfg.n_bins, cfg.maxpksperframe
     gvec = torch.as_tensor(PK.gauss_vector(cfg), device=dev)
-    before = _counts(SP, CP)
+    before = _counts()
+    for B, T, fan in ((0, 40, 3), (2, 0, 3), (0, 0, 3), (2, 40, 0)):
+        slots = torch.ones((B, T, k), dtype=torch.int32, device=dev)
+        pcfg = cfg._replace(maxpairsperpeak=fan)
+        out = L.slots_to_hashes(slots, slots.bool(), pcfg)
+        require(all(a.shape == (B, T, k, fan) for a in out),
+                f"slots_to_hashes at B={B}, T={T}, fanout {fan}: "
+                f"{[tuple(a.shape) for a in out]}")
     for B, T in ((0, 40), (2, 0), (0, 0)):
         x = torch.zeros((B, T, F), device=dev)
         nf = torch.full((B,), T, dtype=torch.int32, device=dev)
@@ -2444,7 +2710,7 @@ def _contract_zero_size(torch, dev) -> None:
             require(lpos.shape == (B, T, k) and env.shape == (B, F),
                     f"prune_fwd_carry at B={B}, T={T}")
     _sync(torch, dev)
-    after = _counts(SP, CP)
+    after = _counts()
     require(after == before, f"a zero-size call launched a kernel: {before} "
                              f"-> {after}")
 
@@ -2755,21 +3021,20 @@ def phase_contract(torch, rec: dict, dev, d) -> dict:
     the accuracy fixture.  The kernels' launches are counted over these
     (the zero-size calls launch nothing); the comparisons of the entry
     points ported last with the CPU come after the count."""
-    from audfprint_torch.ops import cuda_peaks as CP
-    from audfprint_torch.ops import spectro as SP
 
     t0 = time.time()
-    _counts_zero(SP, CP)
+    _counts_zero()
     out = _contract_compat(torch, dev, d)
     _contract_zero_size(torch, dev)
     out.update(_contract_edges(torch, dev, d))
     out["contract_rows_duplicate_heavy"] = _contract_duplicates(torch, dev)
     out.update(_contract_accuracy(torch, dev))
     _sync(torch, dev)
-    launches = _counts(SP, CP)
+    launches = _counts()
     out["contract_s"] = time.time() - t0
     print(f"contract phase: {out['contract_s']:.2f} s; launches {launches}")
-    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0,
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
+            and launches["pair_scan"] > 0,
             f"a kernel was not launched on the contract path: {launches}")
     rec["_paths"]["contract"] = launches
     _contract_new_functions(torch, dev)      # comparisons: not counted
@@ -2826,6 +3091,7 @@ def main() -> int:
 
         timed("kernels", phase_kernels, torch, rec)
         timed("stream_kernels", phase_stream_kernels, torch, rec, dev)
+        timed("pair_kernel", phase_pair, torch, rec, dev)
         with tempfile.TemporaryDirectory() as d:
             summary.update(timed("contract", phase_contract, torch, rec, dev,
                                  d))
@@ -2864,7 +3130,9 @@ def main() -> int:
             ("prune_fwd_carry", "audfprint_torch/csrc/prune.cu",
              "audfprint_tpu/ops/peaks.py:111"),
             ("hpf_scan", "audfprint_torch/csrc/hpf.cu",
-             "audfprint_tpu/ops/spectro.py:77")):
+             "audfprint_tpu/ops/spectro.py:77"),
+            ("pair_scan", "audfprint_torch/csrc/pair.cu",
+             "audfprint_tpu/ops/landmarks.py:77")):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,

@@ -265,7 +265,7 @@ def test_cli_ndev_equals_single_device(tmp_path, capsys):
     import json
     with open(tmp_path / "m8.json") as f:
         assert set(json.load(f)["kernel_launches"]) >= {
-            "hpf_scan", "prune_fwd_bwd"}
+            "hpf_scan", "prune_fwd_bwd", "pair_scan"}
 
 
 def test_cli_ndev_not_divisible_notes_and_falls_back(tmp_path, capsys):

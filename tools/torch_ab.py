@@ -21,7 +21,10 @@ phase and one 256 x 30 s batch of config 2's tracks.  For each root:
     torch.profiler (the summed spans of its kernels and copies), beside
     that run's wall;
   * stages_ms: device ms per stage of the batch (chip_smoke.stage_breakdown:
-    CUDA events, calls queued behind a spinning kernel).
+    CUDA events, calls queued behind a spinning kernel);
+  * query_device_events: kernels and copies on the device, in
+    torch.profiler, while the Analyzer fingerprints one 8 s query (the
+    first 8 s of the batch's first track), warm.
 
 Prints one `torch_ab: {json}` line per root and writes the cProfile
 listings to DIR when --out is given.  Needs a CUDA device; imports no JAX.
@@ -143,6 +146,15 @@ def _child(root: str, wav: str, npy: str, out: str | None) -> dict:
     batch = np.load(npy)
     lens = np.full(batch.shape[0], batch.shape[1], np.int32)
     res["stages_ms"] = cs.stage_breakdown(torch, batch, lens)
+
+    query = [batch[0, : 8 * cs.SR]]
+    an.samples_batch2hashes(query)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        an.samples_batch2hashes(query)
+        torch.cuda.synchronize()
+    res["query_device_events"] = sum(e.device_type == DeviceType.CUDA
+                                     for e in p.events())
     return res
 
 
