@@ -36,7 +36,10 @@ Phases (any failure exits non-zero before the result line):
      bins with K = 8, T = 0, 1, mindt, targetdt and 2,100, no valid slot,
      slots dense within targetdf, partners at |df| = targetdf - 1 and
      targetdf, partners past the last frame, a listen query, mindt 0 and
-     -2), the config-2 batch shape 256 x 1535 x 5, and a 2 h file's
+     -2, slots 3 % valid, T one less than K3's tile, equal to it and one
+     more, a tile whose halo runs past T, partners only at d = 62, mindt
+     -2 past a tile and its halo, and d < -T at mindt -2 and -70), the
+     config-2 batch shape 256 x 1535 x 5, and a 2 h file's
      1 x 310,078 x 5 int16 slots through streaming.pair_kept_slots; K3
      timed at the batch, a query and the streamed shape.  Each kernel's
      time (device time of back-to-back launches, cuda_ms) beside its bound
@@ -439,10 +442,18 @@ def _k2_input(rng, b: int, t: int, F: int, kind: str) -> np.ndarray:
 # with no valid slot, slots dense within targetdf (the fanout fills at
 # d = mindt), partners at |df| = targetdf - 1 and targetdf (strict), valid
 # peaks only in the last frames (the walk meets t + d >= T), a listen
-# query, and mindt 0 and -2 (a negative dt reads where JAX's
-# dynamic_slice lands, landmarks.slice_start).  tests/test_torch_pairing.py
-# holds each against JAX on the CPU; the card holds K3 against its plain
-# version on each.
+# query, mindt 0 and -2 (a negative dt reads where JAX's dynamic_slice
+# lands, landmarks.slice_start).  Then the edges of K3's tile of K3_TILE
+# frames: slots 3 % valid (the regime of real peak slots), T at the tile
+# less one, equal and plus one (partners across the tile's edge), a tile
+# whose halo of targetdt frames runs past T, partners only at d =
+# targetdt - 1 (the halo's far end, from a tile's last frame too), mindt
+# -2 past a tile and its halo (the d < 0 steps read frame t + targetdt,
+# the halo's last), and d < -T (mindt -2 at T = 1, where every step reads
+# the padding; mindt -70 at T = 10, where the steps read frames of the
+# row).  tests/test_torch_pairing.py holds each against JAX on the CPU;
+# the card holds K3 against its plain version on each.
+K3_TILE = 128                      # csrc/pair.cu kTileFrames
 PAIR_CASES = [("default", 2, 64, 5, {}, "random"),
               ("fanout 0", 2, 64, 5, {"maxpairsperpeak": 0}, "random"),
               ("fanout 1", 2, 64, 5, {"maxpairsperpeak": 1}, "random"),
@@ -461,20 +472,35 @@ PAIR_CASES = [("default", 2, 64, 5, {}, "random"),
               ("|df| = targetdf - 1 and targetdf", 2, 40, 5, {}, "edge_df"),
               ("partners in the last frames", 2, 40, 5, {}, "tail"),
               ("mindt=0", 2, 64, 5, {"mindt": 0}, "random"),
-              ("mindt=-2", 2, 64, 5, {"mindt": -2}, "random")]
+              ("mindt=-2", 2, 64, 5, {"mindt": -2}, "random"),
+              ("sparse", 2, 600, 5, {}, "sparse"),
+              ("T=tile-1", 1, K3_TILE - 1, 5, {}, "random"),
+              ("T=tile", 2, K3_TILE, 5, {}, "random"),
+              ("T=tile+1", 2, K3_TILE + 1, 5, {}, "random"),
+              ("halo past T", 2, K3_TILE + 40, 5, {}, "random"),
+              ("partners at d = targetdt - 1", 2, 400, 5, {}, "far"),
+              ("mindt=-2, T=tile+80", 2, K3_TILE + 80, 5, {"mindt": -2},
+               "random"),
+              ("mindt=-2, T=1", 2, 1, 5, {"mindt": -2}, "random"),
+              ("mindt=-70, T=10", 2, 10, 5, {"mindt": -70}, "random")]
 
 
 def pair_input(rng, b: int, t: int, k: int, n_bins: int, kind: str,
                targetdf: int = 31):
     """K3 input slots from a seed: (bins (b, t, k) int32 ascending per
     frame, valid (b, t, k) bool).  Random: bins uniform over n_bins, 60 %
-    valid.  Invalid: no valid slot.  Dense: every slot valid, bins within
-    10 of 100.  Edge_df: every frame [f - targetdf, f - targetdf + 1, f,
-    f + targetdf - 1, f + targetdf] at f = 100, 70 % valid.  Tail: valid
-    (80 %) only in the last 12 frames."""
+    valid.  Sparse: the same bins, 3 % valid.  Invalid: no valid slot.
+    Dense: every slot valid, bins within 10 of 100.  Edge_df: every frame
+    [f - targetdf, f - targetdf + 1, f, f + targetdf - 1, f + targetdf] at
+    f = 100, 70 % valid.  Tail: valid (80 %) only in the last 12 frames.
+    Far: bins within 10 of 100, valid only in frames 7 + 62 i, so every
+    partner lies at d = 62, the default targetdt - 1, and anchors fall on
+    the last frame of a tile of 8 frames (t = 7) and of 128 (t = 255)."""
     bins = np.sort(rng.integers(0, n_bins, (b, t, k)), axis=-1)
     valid = rng.random((b, t, k)) < 0.6
-    if kind == "invalid":
+    if kind == "sparse":
+        valid = rng.random((b, t, k)) < 0.03
+    elif kind == "invalid":
         valid[:] = False
     elif kind == "dense":
         bins = 100 + np.sort(rng.integers(0, 10, (b, t, k)), axis=-1)
@@ -483,6 +509,10 @@ def pair_input(rng, b: int, t: int, k: int, n_bins: int, kind: str,
         bins = np.broadcast_to(100 + np.array(
             [-targetdf, 1 - targetdf, 0, targetdf - 1, targetdf]), (b, t, k))
         valid = rng.random((b, t, k)) < 0.7
+    elif kind == "far":
+        bins = 100 + np.sort(rng.integers(0, 10, (b, t, k)), axis=-1)
+        valid = np.broadcast_to((np.arange(t) % 62 == 7)[None, :, None],
+                                (b, t, k)).copy()
     elif kind == "tail":
         valid = (rng.random((b, t, k)) < 0.8) \
             & (np.arange(t) >= t - 12)[None, :, None]
@@ -684,10 +714,13 @@ def phase_kernels(torch, rec: dict) -> None:
 
 
 def k3_work(torch, bins, valid, cfg) -> tuple:
-    """(partner slots examined, partners appended) by K3's walk on these
-    inputs (mindt >= 0): per valid anchor, the slots up to its fanout-th
+    """(partner slots examined, partners appended, list entries examined)
+    on these inputs (mindt >= 0).  Slots examined: by PR 8's walk over
+    every partner slot, per valid anchor the slots up to its fanout-th
     qualifying partner, or every slot of its frames t + d < T when it has
-    fewer.  Counted with tensor code over chunks of frames."""
+    fewer.  List entries examined: by K3's walk over the tile's list of
+    valid peaks, the valid ones among those slots.  Counted with tensor
+    code over chunks of frames."""
     B, T, K = bins.shape
     fan = cfg.maxpairsperpeak
     dev = bins.device
@@ -695,24 +728,28 @@ def k3_work(torch, bins, valid, cfg) -> tuple:
     nd = d.numel()
     bp = torch.cat([bins, bins.new_zeros((B, cfg.targetdt, K))], 1)
     vp = torch.cat([valid, valid.new_zeros((B, cfg.targetdt, K))], 1)
-    examined = appended = 0
+    examined = appended = entries = 0
     step = max(1, (1 << 26) // max(1, B * K * nd * K))
     for t0 in range(0, T, step):
         t = torch.arange(t0, min(T, t0 + step), device=dev)
         n = t.numel()
         fr = t[:, None] + d[None, :]                          # (n, nd)
-        ok = (valid[:, t0:t0 + n, :, None]
-              & vp[:, fr].reshape(B, n, 1, nd * K)
+        vpart = vp[:, fr].reshape(B, n, 1, nd * K)
+        ok = (valid[:, t0:t0 + n, :, None] & vpart
               & ((bp[:, fr].reshape(B, n, 1, nd * K)
                   - bins[:, t0:t0 + n, :, None]).abs() < cfg.targetdf))
         c = ok.cumsum(-1, dtype=torch.int32)                  # (B, n, K, nd K)
         n_in = ((T - t - cfg.mindt).clamp(0, nd) * K)[None, :, None]
         seen = torch.where(c[..., -1] >= fan,
                            (c >= fan).to(torch.int32).argmax(-1) + 1, n_in)
+        vc = vpart.expand_as(ok).cumsum(-1, dtype=torch.int32)
+        listed = torch.where(seen > 0, vc.gather(
+            -1, (seen - 1).clamp(min=0)[..., None])[..., 0], 0)
         v = valid[:, t0:t0 + n]
         examined += int(seen[v].sum().item())
         appended += int(c[..., -1].clamp(max=fan)[v].sum().item())
-    return examined, appended
+        entries += int(listed[v].sum().item())
+    return examined, appended, entries
 
 
 def k3_bound(torch, bins, valid, cfg) -> tuple:
@@ -720,13 +757,15 @@ def k3_bound(torch, bins, valid, cfg) -> tuple:
     (int32) and lvalid written, each once; 4 int32 operations a partner
     slot examined (difference, absolute value, compare, valid) and 4 a
     partner appended (the pack).  Returns (bound_ms, bound_by, partner
-    slots examined per valid anchor)."""
+    slots examined per valid anchor by PR 8's walk, list entries examined
+    per valid anchor by K3's)."""
     n = bins.numel()
     fan = cfg.maxpairsperpeak
-    examined, appended = k3_work(torch, bins, valid, cfg)
+    examined, appended, entries = k3_work(torch, bins, valid, cfg)
     bms, bby = bound(4 * n + n + 4 * n * fan + n * fan,
                      4 * examined + 4 * appended, INT32_OPS_PER_S)
-    return bms, bby, examined / max(1, int(valid.sum().item()))
+    anchors = max(1, int(valid.sum().item()))
+    return bms, bby, examined / anchors, entries / anchors
 
 
 @contextlib.contextmanager
@@ -821,13 +860,15 @@ def phase_pair(torch, rec: dict, dev) -> None:
             require(same, f"K3 differs from its plain version at ({b},{t},5)")
         ms = cuda_ms(lambda: L.slots_to_hashes(bins, valid, cfg), 20)
         plain = cuda_ms(lambda: L.slots_to_hashes_plain(bins, valid, cfg), 1)
-        bms, bby, per = k3_bound(torch, bins, valid, cfg)
+        bms, bby, per, listed = k3_bound(torch, bins, valid, cfg)
         out.update({f"{key}ms": ms, f"{key}plain_ms": plain,
                     f"{key}bound_ms": bms, f"{key}bound_by": bby,
-                    f"{key}examined_per_anchor": per})
+                    f"{key}examined_per_anchor": per,
+                    f"{key}entries_per_anchor": listed})
         print(f"K3 pair_scan ({b},{t},5): kernel {ms:.4f} ms, plain "
-              f"{plain:.1f} ms, bound {bms:.5f} ms ({bby}); {per:.2f} "
-              f"partner slots examined per valid anchor")
+              f"{plain:.1f} ms, bound {bms:.5f} ms ({bby}); per valid "
+              f"anchor {listed:.2f} list entries examined (PR 8's walk: "
+              f"{per:.2f} partner slots)")
     rec["pair_scan"] = dict(max_abs_err=worst, library_ms=None, **out)
 
 
@@ -849,15 +890,17 @@ def pair_on_real(torch, rec: dict, audio: np.ndarray, lens: np.ndarray
     same, err, got = _k3_equal(torch, bins, valid, cfg)
     require(same, "K3 differs from its plain version on config 2's peaks")
     ms = cuda_ms(lambda: L.slots_to_hashes(bins, valid, cfg), 20)
-    bms, _bby, per = k3_bound(torch, bins, valid, cfg)
+    bms, _bby, per, listed = k3_bound(torch, bins, valid, cfg)
     share = float(valid.float().mean().item())
     print(f"K3 pair_scan on config 2's peak slots {tuple(bins.shape)}: "
           f"bit-exact vs plain ({int(got[2].sum())} landmarks); kernel "
           f"{ms:.4f} ms, bound {bms:.5f} ms; {share:.3f} of the slots valid, "
-          f"{per:.2f} partner slots examined per valid anchor")
+          f"per valid anchor {listed:.2f} list entries examined (PR 8's "
+          f"walk: {per:.2f} partner slots)")
     rec["pair_scan"].update(real_shape=list(bins.shape), real_ms=ms,
                             real_bound_ms=bms, real_valid_share=share,
-                            real_examined_per_anchor=per)
+                            real_examined_per_anchor=per,
+                            real_entries_per_anchor=listed)
     rec["pair_scan"]["max_abs_err"] = max(rec["pair_scan"]["max_abs_err"],
                                           err)
 
