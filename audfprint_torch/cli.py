@@ -332,10 +332,10 @@ def do_merge(ht: HashTable, names: list, args, report, stages: Stages,
 
 
 def _decode_chunk(analyzer: Analyzer, args, report, chunk: list) -> list:
-    """Decode one chunk -> (name, kind, payload) entries in input order.
-    kind is "pre" (precomputed, loads later), "wav" (payload = decoded
-    samples) or "stream" (a WAV past --stream-above, analysed chunk-wise
-    right here with O(chunk) memory; payload = (hashes, duration))."""
+    """Decode one chunk on the host -> (name, kind, payload) entries in
+    input order.  kind is "pre" (precomputed, loads later), "wav"
+    (payload = decoded samples) or "stream" (a WAV past --stream-above,
+    payload None until _stream_chunk analyses it)."""
     def _kind(n):
         if os.path.splitext(n)[1] in (formats.PRECOMPEXT,
                                       formats.PRECOMPPKEXT):
@@ -345,21 +345,27 @@ def _decode_chunk(analyzer: Analyzer, args, report, chunk: list) -> list:
     kinds = [_kind(n) for n in chunk]
     wavs = [n for n, k in zip(chunk, kinds) if k == "wav"]
     signals = iter(_decode_many(analyzer, wavs, args.ncores, report))
+    return [(n, k, next(signals) if k == "wav" else None)
+            for n, k in zip(chunk, kinds)]
+
+
+def _stream_chunk(analyzer: Analyzer, report, ordered: list) -> list:
+    """The "stream" entries of a decoded chunk analysed chunk-wise, with
+    O(chunk) memory: payload = (hashes, duration), or None when reading
+    failed (reported).  The streamed route runs on the device, so it runs
+    on the thread that dispatches: a CUDA graph captured there in the
+    default global mode must see no CUDA call from another thread."""
     out = []
-    for n, k in zip(chunk, kinds):
-        if k == "wav":
-            out.append((n, k, next(signals)))
-        elif k == "stream":
+    for n, k, d in ordered:
+        if k == "stream":
             try:
                 h = analyzer.wavfile2hashes_streaming(n)
-                out.append((n, k, (h, analyzer.soundfiledur)))
+                d = (h, analyzer.soundfiledur)
             except (OSError, ValueError, audio_io.DecodeError) as e:
                 if analyzer.fail_on_error:
                     raise
                 report(f"Error reading {n}: {e}")
-                out.append((n, k, None))
-        else:
-            out.append((n, k, None))
+        out.append((n, k, d))
     return out
 
 
@@ -393,7 +399,9 @@ def _resolve_chunk(analyzer: Analyzer, ordered: list, hashes_iter,
 def _run_pipelined(chunks: list, analyzer: Analyzer, args, report,
                    stages: Stages, consume, dispatch) -> None:
     """Decode chunk i+1 on a host thread while the device works on chunk i
-    and `consume(ordered, handle)` handles chunk i-1."""
+    and `consume(ordered, handle)` handles chunk i-1.  The decode thread
+    touches no CUDA: chunk i's streamed files are analysed here, just
+    before its dispatch."""
     pool = ThreadPoolExecutor(max_workers=1)
 
     def dec(c):
@@ -407,6 +415,8 @@ def _run_pipelined(chunks: list, analyzer: Analyzer, args, report,
                 ordered = pending.result()
             pending = (pool.submit(dec, chunks[ci + 1])
                        if ci + 1 < len(chunks) else None)
+            with stages.time("decode"):
+                ordered = _stream_chunk(analyzer, report, ordered)
             with stages.time("dispatch"):
                 handle = dispatch(ordered)
             if in_flight is not None:
@@ -622,7 +632,10 @@ def do_warmup(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
     and runs the two-stage and the fused fingerprint + match once for each
     --warm-durations bucket at sub-batch sizes 1 and --batchsize's power
     of two: the shapes a `match` / `match --listen` process uses, so cuFFT
-    plans and the caching allocator are set up too.
+    plans and the caching allocator are set up too.  On a CUDA device the
+    fused calls capture the Matcher's CUDA graphs for those keys, for
+    float32 input and for int16 PCM (what a 16-bit WAV at the analysis
+    rate decodes to), so that the process's later calls replay them.
 
     Returns the count the JAX package reports: one fingerprint batch per
     duration plus one or two match paths per batch size (the fused one
@@ -640,10 +653,14 @@ def do_warmup(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
         n = max(1, int(d * sr))
         clips = [0.1 * rng.standard_normal(n).astype(np.float32)
                  for _ in range(bmax)]
+        pcm = [np.clip(np.round(c * 32768.0), -32768, 32767).astype(np.int16)
+               for c in clips]
         hashes = analyzer.samples_batch2hashes(clips)
         for b in bsizes:
             matcher.match_hashes_batch(ht, hashes[:b])
             fused = matcher.match_samples_fused(analyzer, ht, clips[:b])
+            if fused is not None:
+                matcher.match_samples_fused(analyzer, ht, pcm[:b])
             n_graphs += 2 if fused is not None else 1
         report(f"warmed {d:g} s bucket (batch sizes {bsizes})")
     return len(durs) + n_graphs

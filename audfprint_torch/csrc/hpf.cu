@@ -277,6 +277,10 @@ extern "C" int hpf_scan(const float* x, float* y, const float* x0,
     return (int)cudaErrorInvalidValue;
   const size_t smem = block_bytes(frames, stages);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  // The maps hold x's and y's addresses of this call, and a CUDA graph
+  // that captures the launch keeps them.  That is sound only because a
+  // graph's replays reuse the buffers it captured: x and y come from the
+  // graph's own pool, at the same addresses on every replay.
   CUtensorMap tx, ty;
   if (!tensor_map(&tx, x, B, T, F, frames) ||
       !tensor_map(&ty, y, B, T, F, frames))

@@ -7,7 +7,10 @@ rows).  The device table upload is cached per (HashTable, revision, ndev),
 so repeated queries against one DB pay the transfer once.  The fused path
 fingerprints and matches a batch of sample arrays in one call
 (_fused_match_graph) and re-matches the rare row past its static caps
-through the two-stage path, so it never changes results.  The serving
+through the two-stage path, so it never changes results.  On one CUDA
+device the fused function is captured as a CUDA graph per shape key and
+replayed (utils/graphs.GraphCache, the counterpart of the JAX package's
+jitted executable).  The serving
 modes ride the batched match: match_hashes_windowed (broadcast monitoring)
 and match_samples_sweep (playback-speed corrections); illustrate_match and
 sonify_match are host diagnostics on top of match_hashes.
@@ -25,6 +28,7 @@ from audfprint_torch.utils import audio as audio_io
 from audfprint_torch.index import device_table as DT
 from audfprint_torch.match import voting
 from audfprint_torch.ops import pipeline as pipe
+from audfprint_torch.utils import graphs
 from audfprint_torch.utils.device import resolve_device
 
 _next_pow2 = P.next_pow2
@@ -129,6 +133,9 @@ class Matcher:
         self.ndev = ndev
         self._dev = None          # (weakref to ht, revision) -> device state
         self._fallback_dev = None
+        # the single-device fused path's captured graphs, one per shape key
+        self._graphs = graphs.GraphCache(_fused_match_graph, self.device,
+                                         pipe.launch_counters())
 
     # Device-memory budget for one voting call; None = derive from the
     # device on first use.  Set it to split batches on small devices.
@@ -171,6 +178,8 @@ class Matcher:
         ndev = self._resolved_ndev(ht)
         if self._dev is None or self._dev[0]() is not ht \
                 or self._dev[1] != (rev, ndev):
+            # the graphs read the old tensors: drop them before re-staging
+            self._graphs.clear()
             ncap = _next_pow2(max(1, len(ht.names)), 256)
             hpi = np.zeros(ncap, np.int32)
             hpi[: len(ht.hashesperid)] = np.minimum(ht.hashesperid,
@@ -199,9 +208,11 @@ class Matcher:
                 if self.use_hpi_plane else None)
 
     def invalidate(self):
-        """Drop the cached device tables; the next match stages anew."""
+        """Drop the cached device tables and the graphs that read them;
+        the next match stages anew."""
         self._dev = None
         self._fallback_dev = None
+        self._graphs.clear()
 
     # -- core -------------------------------------------------------------
 
@@ -436,10 +447,13 @@ class Matcher:
         Returns a handle for match_fused_resolve, or None when the
         histogram core is pinned or the groups' voting buffers together
         pass the memory budget (the caller then takes the two-stage path).
-        On a mesh each group goes through
-        sharded.sharded_fused_match_cached: every shard fingerprints its
-        slice of the batch, then the hit exchange and the vote; same
-        readback row, same rows as the two-stage mesh path."""
+        On one device each group replays the captured graph of its key
+        (rows, bucket length, int16 or float32 input, qcap, the configs,
+        the hpi plane), capturing it on the key's first call.  On a mesh
+        each group goes through sharded.sharded_fused_match_cached: every
+        shard fingerprints its slice of the batch, then the hit exchange
+        and the vote; same readback row, same rows as the two-stage mesh
+        path."""
         (table, counts, hpi, tcfg, ncap, mesh,
          hpi_plane) = self._device_state(ht)
         if self.force_core == "hist":
@@ -447,22 +461,33 @@ class Matcher:
         mcfg = self._mcfg(_QT_FLOOR, ncap)
         budget = self._budget_bytes()
         groups = analyzer.stage_groups(signals)
+        state = (table, counts, hpi, hpi_plane)
         qcaps = []
-        footprint = 0
+        # every group is queued before any resolves, so their buffers can
+        # be live together: budget the sum.  Captured graphs keep theirs in
+        # the cache's pool (held_bytes), which a group of a captured key
+        # reuses and a new key's capture adds to
+        replays = mesh is None and graphs.captures(self.device)
+        footprint = self._graphs.held_bytes
+        new_keys = set()
         for _idxs, batch, lens in groups:
             # static query-hash cap per bucket: ~density unique hashes/s,
             # 1.5x + 64 headroom; an underestimate only costs a re-match
             dur = batch.shape[1] / float(analyzer.target_sr)
             qcap = self.fused_qcap or _next_pow2(
                 int(dur * analyzer.density * 1.5) + 64, 128)
-            # every group is queued before any resolves, so their buffers
-            # can be live together: budget the sum
+            qcaps.append(qcap)
+            if replays:
+                static = (analyzer.config, tcfg, mcfg, qcap)
+                key = self._graphs.key((batch, lens), state, static)
+                if key in new_keys or self._graphs.holds((batch, lens),
+                                                         state, static):
+                    continue
+                new_keys.add(key)
             footprint += (self._sorted_bytes_per_row(tcfg, qcap, mesh)
                           * len(lens))
             if footprint > budget:
                 return None
-            qcaps.append(qcap)
-        dev = self.device
         outs = []
         for (idxs, batch, lens), qcap in zip(groups, qcaps):
             if mesh is not None:
@@ -479,10 +504,8 @@ class Matcher:
                     (hpi_plane,) if hpi_plane is not None else ())
                 out = fn(*args, batch, lens)
             else:
-                out = _fused_match_graph(
-                    torch.as_tensor(batch, device=dev),
-                    torch.as_tensor(lens, device=dev), table, counts, hpi,
-                    hpi_plane, analyzer.config, tcfg, mcfg, qcap)
+                out = self._graphs((batch, lens), state,
+                                   (analyzer.config, tcfg, mcfg, qcap))
             outs.append((idxs, out))
         return (len(signals), outs, signals)
 

@@ -495,10 +495,12 @@ def _vote_rle(key: torch.Tensor, qt_f: torch.Tensor | None,
     if mcfg.find_time_range:
         s_valid = s_id < N
         id_first_f1 = _first_of(s_id)
-        tq = torch.tensor(mcfg.time_quantile, dtype=torch.float32,
-                          device=dev)
-        tq1 = torch.tensor(1.0 - mcfg.time_quantile, dtype=torch.float32,
-                           device=dev)
+        # filled on the device: an upload would wait for the stream and
+        # cannot be captured in a CUDA graph
+        tq = torch.full((), mcfg.time_quantile, dtype=torch.float32,
+                        device=dev)
+        tq1 = torch.full((), 1.0 - mcfg.time_quantile, dtype=torch.float32,
+                         device=dev)
         seed_col = torch.where(cand_valid, cand_start, H)  # H: spare column
         min_ts, max_ts = [], []
         for s in range(Mc):

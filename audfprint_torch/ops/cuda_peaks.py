@@ -21,6 +21,8 @@ ops.peaks.find_peaks_mask(hpf(sgram)).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -205,13 +207,23 @@ def candidate_map(y: torch.Tensor, n_frames: torch.Tensor) -> torch.Tensor:
     return torch.where(PK.locmax2(y) & active[:, :, None], y, _NEG)
 
 
+@functools.lru_cache(maxsize=None)
+def gauss_vector_on(cfg: PipelineConfig, device: torch.device) -> torch.Tensor:
+    """The bump template on `device`, made once per configuration and
+    device: an upload from pageable memory waits for the stream, and a
+    CUDA graph cannot capture it.  Callers must not write to it.  Kept
+    for the life of the process: a captured graph reads it by address,
+    so an evicted template's block, reused, would feed its replays."""
+    return torch.as_tensor(PK.gauss_vector(cfg), device=device)
+
+
 def prune_inputs(sgram: torch.Tensor, n_frames: torch.Tensor,
                  cfg: PipelineConfig):
     """The envelope-independent prologue, vectorised over all frames: the
     HPF (K2), locmax and the length mask into the candidate map m0, and
     both initial envelopes.  Returns (y, m0, env0f, env0b, gvec)."""
     F = sgram.shape[2]
-    gvec = torch.as_tensor(PK.gauss_vector(cfg), device=sgram.device)
+    gvec = gauss_vector_on(cfg, sgram.device)
     gtab = _bump_table(gvec, F)
     y, _ = SP.hpf(sgram, cfg)
     m0 = candidate_map(y, n_frames)

@@ -33,6 +33,12 @@ def frame_count_device(lengths: torch.Tensor,
                        0).to(torch.int32)
 
 
+def launch_counters() -> tuple:
+    """The kernel wrappers' launch counts: K2 (spectro), K1 and K1f
+    (cuda_peaks), K3 (landmarks)."""
+    return SP.launches, CP.launches, L.launches
+
+
 # frames of an n-sample row, under the JAX package's name
 n_frames_padded_static = SP.n_frames_padded
 

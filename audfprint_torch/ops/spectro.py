@@ -42,10 +42,11 @@ def frame_batch(audio: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
     return audio.unfold(1, cfg.n_fft, cfg.n_hop)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def hann_window(n_fft: int, device: torch.device) -> torch.Tensor:
     """The analysis window, made once per device: an upload per call would
-    wait for the work queued on the stream."""
+    wait for the work queued on the stream.  Kept for the life of the
+    process: a captured graph reads it by address (utils/graphs.py)."""
     return torch.as_tensor(P.hann_window(n_fft).astype(np.float32),
                            device=device)
 

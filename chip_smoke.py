@@ -49,7 +49,8 @@ Phases (any failure exits non-zero before the result line):
      exact-segment queries"): 1,000 synthetic music-like 30 s tracks from
      a fixed seed -> Analyzer(device="cuda") -> host HashTable (2^20 x 100)
      -> device table -> 64 clean 10 s hop-aligned queries through the fused
-     Matcher path; top-1 self >= 0.95, hash Jaccard > 0.9 against the
+     Matcher path (its CUDA graph captured by a first call, then
+     replayed); top-1 self >= 0.95, hash Jaccard > 0.9 against the
      oracle for 4 tracks, and K1, K2 and K3 launched on this path; K1
      timed on the candidate map of one (256 x 30 s) batch of the corpus,
      K3 held against its plain version and timed on its peak slots
@@ -91,9 +92,15 @@ Phases (any failure exits non-zero before the result line):
      inside filler reporting a track, and do_match's device peak above
      what was resident within the vote's budget (Matcher._budget_bytes)
  12. the `match --listen` loop (cli.do_listen over an os.pipe) on phase
-     6's queries: 16 interactive requests (latency), then a backlog of 48
+     6's queries, after cli.do_warmup at --warm-durations 5,10 and
+     --batchsize 16 on a matcher of its own (8 graphs captured: 2 buckets
+     x sub-batch sizes 1 and 16 x float32 and int16; capture seconds, the
+     cache's bytes and the reserved memory after warmup): 16 interactive
+     requests (latency; their key among warmup's), then a backlog of 48
      with one missing path; lines equal batch do_match's, in order, the
-     missing path reported, fewer do_match calls than backlog queries
+     missing path reported, fewer do_match calls than backlog queries;
+     then the 16 requests again, the eager function against the replays
+     in turns over 5 rounds (p50 and max of each)
  13. a default-size wide table (2^20 x 100 int64, --idbits 20): phase 6's
      1,000 tracks stored on the card by DT.store_batch at sparse ids
      2^18 + 769 i equal the host HashTable bit for bit, and the 64
@@ -138,7 +145,19 @@ Phases (any failure exits non-zero before the result line):
      count, whitened_spectrogram on the card within the front end's
      tolerance of the CPU and fwd_prune_carry (K1f) bit for bit
 
-Each path of phases 6-8, 10-13, 15 and 16 runs with the kernels' launch
+ 17. the fused path's CUDA graphs (utils/graphs.GraphCache), right after
+     phase 14, on config 2's 64 queries: the eager _fused_match_graph
+     raises no host sync under torch.cuda.set_sync_debug_mode("error");
+     every key captured, then a counted run of replays alone at sub-batch
+     sizes 1 and 16 with float32 and int16 input (K1, K2 and K3 counted
+     exactly once a replay, no key captured again); each replayed output
+     equal to the eager function's on the same input bit for bit, and the
+     rows to the numpy oracle's; capture seconds per key; a 1 x 10 s
+     int16 query's host dispatch and device events (torch.profiler) and
+     the 64-query fused match rate, eager against replay in turns over 5
+     rounds
+
+Each path of phases 6-8, 10-13 and 15-17 runs with the kernels' launch
 counts set to 0 just before it and read just after; the kernel record
 lists them by path.  Every one of these paths fingerprints, so each must
 launch K3.
@@ -289,6 +308,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_ms(fn) -> float:
+    """Device milliseconds of one fn() call, for the plain versions: loops
+    of small launches paced by the host, up to seconds a call, where
+    cuda_ms's two untimed calls would triple the time spent."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
@@ -698,8 +732,8 @@ def phase_kernels(torch, rec: dict) -> None:
         if case == 0:
             k1_ms = cuda_ms(lambda: CP.prune_fwd_bwd(
                 m0, nf, e0f, e0b, gvec, cfg.a_dec, cfg.maxpksperframe), 5)
-            k1_plain = cuda_ms(lambda: CP.prune_fwd_bwd_plain(
-                m0, nf, e0f, e0b, gvec, cfg.a_dec, cfg.maxpksperframe), 1)
+            k1_plain = plain_ms(lambda: CP.prune_fwd_bwd_plain(
+                m0, nf, e0f, e0b, gvec, cfg.a_dec, cfg.maxpksperframe))
             k1_stats = k1_rounds(torch, m0, e0f, gvec, kept, cfg)
             k1_b = k1_bound(b, t, Fc, ccfg.maxpksperframe, k1_stats[0])
             print(f"K1 prune_fwd_bwd (256,1535,256): kernel {k1_ms:.3f} ms, "
@@ -859,7 +893,7 @@ def phase_pair(torch, rec: dict, dev) -> None:
             worst = max(worst, err)
             require(same, f"K3 differs from its plain version at ({b},{t},5)")
         ms = cuda_ms(lambda: L.slots_to_hashes(bins, valid, cfg), 20)
-        plain = cuda_ms(lambda: L.slots_to_hashes_plain(bins, valid, cfg), 1)
+        plain = plain_ms(lambda: L.slots_to_hashes_plain(bins, valid, cfg))
         bms, bby, per, listed = k3_bound(torch, bins, valid, cfg)
         out.update({f"{key}ms": ms, f"{key}plain_ms": plain,
                     f"{key}bound_ms": bms, f"{key}bound_by": bby,
@@ -945,7 +979,7 @@ def k2_timings(torch, dev, rng, reps: int = 50) -> dict:
         c = (tuple(torch.zeros((b, F), device=dev) for _ in range(2))
              if carried else None)
         ms = cuda_ms(lambda: SP.hpf(x, cfg, c), reps)
-        plain = cuda_ms(lambda: SP.hpf_plain(x, cfg, c), 1)
+        plain = plain_ms(lambda: SP.hpf_plain(x, cfg, c))
         bms, bby = bound(4 * (2 * b * t * F + (4 * b * F if carried else 0)),
                          3 * b * t * F)
         floor = t * FMA_LATENCY_CYCLES / (mhz * 1e3)
@@ -1073,8 +1107,8 @@ def phase_stream_kernels(torch, rec: dict, dev, shapes=((1, 8192), (4, 2048)),
           f"frame: {dense_ms:.4f} ms ({(dense_ms - empty_ms) / (t * k) * 1e3:.4f}"
           f" us a round)")
     k1f_ms = cuda_ms(lambda: CP.prune_fwd_carry(m0, env0, gvec, a, k), reps)
-    k1f_plain = cuda_ms(
-        lambda: CP.prune_fwd_carry_plain(m0, env0, gvec, a, k), 1)
+    k1f_plain = plain_ms(
+        lambda: CP.prune_fwd_carry_plain(m0, env0, gvec, a, k))
     fwd = int((whole[0] >= 0).sum().item())
     k1f_b = k1f_bound(b, t, F, k, fwd)
     print(f"K1f ({b},{t},{F}): kernel {k1f_ms:.3f} ms, plain "
@@ -1209,7 +1243,7 @@ def phase_main_path(torch, rec: dict) -> dict:
     matcher._device_state(ht)
     torch.cuda.synchronize()
     t_up = time.time() - t0
-    matcher.match_samples_fused(an, ht, queries[:8])       # warm shapes
+    matcher.match_samples_fused(an, ht, queries)     # capture its graph
     torch.cuda.synchronize()
     t0 = time.time()
     res, nhash = matcher.match_samples_fused(an, ht, queries)
@@ -1311,6 +1345,7 @@ def phase_vote_rows(torch, ctx, dev) -> dict:
         n = sum(len(w) for w in want)
         n_rows += n
         if not kw:
+            ctx["oracle_rows"] = want
             fused, _nh = m.match_samples_fused(an, ht, queries)
             bad = _rows_differing(fused, want)
             require(not bad, f"fused-path rows differ from the oracle: "
@@ -1323,6 +1358,231 @@ def phase_vote_rows(torch, ctx, dev) -> dict:
     print(f"vote rows against the oracle: {n_rows} rows compared in "
           f"{len(VOTE_MODES)} modes, 0 differ")
     return {"vote_rows_compared": n_rows}
+
+
+@contextlib.contextmanager
+def eager_fused():
+    """Inside, the fused path runs its eager function, as on a CPU device:
+    a measurement aid of this script; the port itself has no way to turn
+    its graphs off."""
+    from audfprint_torch.utils import graphs
+
+    real = graphs.captures
+    graphs.captures = lambda device: False
+    try:
+        yield
+    finally:
+        graphs.captures = real
+
+
+def to_pcm(x: np.ndarray) -> np.ndarray:
+    """float32 samples as 16-bit PCM, what a WAV at the analysis rate
+    decodes to."""
+    return np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def _key_name(key) -> str:
+    (audio, _lens), _none, _static = key
+    return f"{audio[0][0]}x{audio[0][1]} {np.dtype(audio[1]).name}"
+
+
+GRAPH_KERNELS = ("prune_fwd_bwd", "hpf_scan", "pair_scan")
+
+
+def _cuda_events(torch, fn) -> tuple:
+    """(device events, device busy ms, {kernel: events whose name holds
+    it} for GRAPH_KERNELS) of one fn() under torch.profiler, which lists
+    a graph replay's kernels one by one."""
+    import torch.profiler as tp
+
+    with tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                tp.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {k: sum(k in e.name for e in ev) for k in GRAPH_KERNELS}
+    return len(ev), sum(e.device_time for e in ev) / 1e3, by_name
+
+
+def phase_graphs(torch, rec: dict, ctx, dev) -> dict:
+    """The fused path's CUDA graphs over config 2's 64 queries: the eager
+    function raises no host sync; every key captured first, then a counted
+    run of replays alone at sub-batch sizes 1 and 16, float32 and int16
+    input (K1, K2 and K3 counted once a replay); each replayed output
+    equal to the eager function's bit for bit and the rows to the numpy
+    oracle's; then a 1-row int16 query's device events and host dispatch,
+    and the 64-query fused match rate, eager against replay in turns over
+    5 rounds."""
+    from audfprint_torch.match import matcher as M
+
+    smi = nvidia_smi_line()
+    ht, an, queries = ctx["ht"], ctx["an"], ctx["queries"]
+    sigs = {"float32": queries, "int16": [to_pcm(q) for q in queries]}
+    want = {"float32": ctx["oracle_rows"],
+            "int16": oracle_rows(ht, an.samples_batch2hashes(sigs["int16"]),
+                                 {})}
+    m = M.Matcher(device=dev, verbose=0)
+    (table, counts, hpi, tcfg, ncap, _mesh, plane) = m._device_state(ht)
+    state = (table, counts, hpi, plane)
+    mcfg = m._mcfg(M._QT_FLOOR, ncap)
+
+    def static(batch):
+        dur = batch.shape[1] / float(an.target_sr)
+        return (an.config, tcfg, mcfg,
+                M._next_pow2(int(dur * an.density * 1.5) + 64, 128))
+
+    def eager(batch, lens):
+        return M._fused_match_graph(torch.as_tensor(batch, device=dev),
+                                    torch.as_tensor(lens, device=dev),
+                                    *state, *static(batch))
+
+    cases = [(kind, rows) for kind in sigs for rows in (1, 16)]
+    # the eager function from device audio to the packed output: a host
+    # sync raises here
+    for kind, rows in cases:
+        _i, batch, lens = an.stage_groups(sigs[kind][:rows])[0]
+        xa = torch.as_tensor(batch, device=dev)
+        xl = torch.as_tensor(lens, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            M._fused_match_graph(xa, xl, *state, *static(batch))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"graphs: the eager _fused_match_graph ran {len(cases)} cases "
+          "under set_sync_debug_mode('error') without a host sync")
+
+    for kind, rows in cases:                  # capture every key
+        m.match_samples_fused(an, ht, sigs[kind][:rows])
+    keys = m._graphs.keys()
+    # ---- replays alone, counted ----
+    _counts_zero()
+    handles = []
+    for kind, rows in cases:
+        for i in range(0, len(queries), rows):
+            chunk = sigs[kind][i: i + rows]
+            handles.append((kind, chunk,
+                            m.match_samples_fused_async(an, ht, chunk)))
+    torch.cuda.synchronize()
+    launches = _counts()
+    n_rep = sum(len(h[1]) for _k, _c, h in handles)
+    require(m._graphs.keys() == keys, "a replayed key was captured again")
+    require(all(launches[k] == n_rep for k in GRAPH_KERNELS),
+            f"{n_rep} replays counted as {launches}")
+    rec["_paths"]["graphs"] = launches
+    # the counts above are what the captures recorded; hold them against
+    # what the profiler sees one replay of each key launch
+    for kind, rows in cases:
+        _j, batch, lens = an.stage_groups(sigs[kind][:rows])[0]
+        _n, _ms, seen = _cuda_events(
+            torch, lambda: m._graphs((batch, lens), state, static(batch)))
+        require(all(seen[k] == 1 for k in GRAPH_KERNELS),
+                f"one replay ({kind}, {rows} rows) ran the kernels {seen} "
+                "times, not once each")
+    print(f"graphs: one replay of each of the {len(cases)} keys ran "
+          f"{', '.join(GRAPH_KERNELS)} once each (torch.profiler kernel "
+          "events)")
+    got = {kind: [] for kind in sigs}
+    n_out = 0
+    for kind, chunk, h in handles:
+        for (idxs, out), (_j, batch, lens) in zip(h[1],
+                                                  an.stage_groups(chunk)):
+            require(torch.equal(out, eager(batch, lens)),
+                    f"replayed output differs from the eager function: "
+                    f"{kind}, {len(chunk)} rows, queries {idxs}")
+            n_out += 1
+        got[kind] += m.match_fused_resolve(an, ht, h)[0]
+    for kind in sigs:
+        bad = _rows_differing(got[kind], want[kind] * 2)
+        require(not bad, f"replayed rows differ from the oracle ({kind}): "
+                         f"queries {bad[:8]}")
+    # K1 sets its dynamic shared memory to each launch's size: a smaller
+    # eager launch after the captures leaves a replay's result unchanged
+    an.samples_batch2hashes([queries[0][: 2 * an.target_sr]])
+    h = m.match_samples_fused_async(an, ht, queries[:16])
+    _j, batch, lens = an.stage_groups(queries[:16])[0]
+    require(torch.equal(h[1][0][1], eager(batch, lens)),
+            "a replay after a smaller eager K1 launch differs")
+    cap = {_key_name(k): round(v, 4)
+           for k, v in m._graphs.capture_seconds().items()}
+    print(f"graphs [{smi}]: {len(keys)} keys captured, seconds {cap}; "
+          f"{n_rep} replays launched K1, K2 and K3 once each ({launches}); "
+          f"{n_out} replayed outputs equal the eager function's bit for "
+          f"bit; {sum(len(w) for w in want.values()) * 2} rows equal the "
+          f"oracle's at sub-batch sizes 1 and 16, float32 and int16; cache "
+          f"holds {m._graphs.held_bytes / 2**20:.1f} MiB")
+
+    # one 1-row int16 query, eager against replay, in turns
+    _i, b1, l1 = an.stage_groups(sigs["int16"][:1])[0]
+
+    def replay1():
+        return m._graphs((b1, l1), state, static(b1))
+
+    def eager1():
+        return eager(b1, l1)
+
+    disp = {"eager": [], "replay": []}
+    for _r in range(5):
+        for name, fn in (("eager", eager1), ("replay", replay1)):
+            for _c in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                disp[name].append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    ev = {name: _cuda_events(torch, fn)
+          for name, fn in (("eager", eager1), ("replay", replay1))}
+    med = {k: float(np.median(v)) for k, v in disp.items()}
+    print(f"graphs [{smi}]: a 1 x 10 s int16 query, host dispatch ms "
+          f"(median of 50 calls in 5 rounds, eager / replay) "
+          f"{med['eager']:.3f} / {med['replay']:.3f}; device events "
+          f"{ev['eager'][0]} / {ev['replay'][0]}, device busy ms "
+          f"{ev['eager'][1]:.3f} / {ev['replay'][1]:.3f}, kernels "
+          f"{ev['eager'][2]} / {ev['replay'][2]} (torch.profiler)")
+
+    # the 64-query fused match rate, eager against replay, in turns
+    m.match_samples_fused(an, ht, queries)
+    rate = {"eager": [], "replay": []}
+    for _r in range(5):
+        for name in ("eager", "replay"):
+            with (eager_fused() if name == "eager"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.match_samples_fused(an, ht, queries)
+                rate[name].append(len(queries) / (time.perf_counter() - t0))
+    print(f"graphs [{smi}]: fused match of 64 x 10 s queries, q/s by "
+          f"round, eager {[round(x, 2) for x in rate['eager']]}, replay "
+          f"{[round(x, 2) for x in rate['replay']]}")
+
+    # a key's first call, what a one-shot `match` process pays: the eager
+    # function against warm-up run + capture + replay, each on a fresh
+    # Matcher whose table is staged first, untimed; in turns, 5 rounds
+    cold = {"eager": [], "capture": []}
+    for _r in range(5):
+        for name in ("eager", "capture"):
+            mc = M.Matcher(device=dev, verbose=0)
+            mc._device_state(ht)
+            torch.cuda.synchronize()
+            with (eager_fused() if name == "eager"
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                mc.match_samples_fused(an, ht, queries[:1])
+                cold[name].append(1e3 * (time.perf_counter() - t0))
+            del mc
+    print(f"graphs [{smi}]: a new key's first call (1 x 10 s float32, "
+          f"fresh Matcher), ms by round, eager "
+          f"{[round(x, 2) for x in cold['eager']]}, capture "
+          f"{[round(x, 2) for x in cold['capture']]}")
+    return {"graph_keys": len(keys), "graph_capture_s": cap,
+            "graph_replays_counted": n_rep,
+            "graph_held_mib": m._graphs.held_bytes / 2**20,
+            "query_dispatch_ms": med,
+            "query_device_events": {k: v[0] for k, v in ev.items()},
+            "query_device_busy_ms": {k: v[1] for k, v in ev.items()},
+            "fused_match_q_per_s": rate, "first_call_ms": cold}
 
 
 def _timed(torch, dev, fn, warm: bool = True):
@@ -1686,12 +1946,10 @@ def _jaccard(a: np.ndarray, b: np.ndarray):
 
 def _launch_counters() -> tuple:
     """The kernels' launch counts: K2 (spectro), K1 and K1f (cuda_peaks),
-    K3 (landmarks)."""
-    from audfprint_torch.ops import cuda_peaks as CP
-    from audfprint_torch.ops import landmarks as L
-    from audfprint_torch.ops import spectro as SP
+    K3 (landmarks); a graph replay adds the launches it recorded."""
+    from audfprint_torch.ops.pipeline import launch_counters
 
-    return SP.launches, CP.launches, L.launches
+    return launch_counters()
 
 
 def _counts_zero() -> None:
@@ -1704,11 +1962,21 @@ def _counts() -> dict:
     return {k: v for d in _launch_counters() for k, v in d.items()}
 
 
-def _cli(argv: list, timeout: int = 900) -> str:
-    """python -m audfprint_torch <argv> as a subprocess; returns stdout."""
+# `python -m audfprint_torch` inside eager_fused(), so that a process's
+# eager cost can be timed beside its graphs' (oneshot_match)
+_EAGER_MAIN = ("import runpy; from audfprint_torch.utils import graphs; "
+               "graphs.captures = lambda device: False; "
+               "runpy.run_module('audfprint_torch', run_name='__main__', "
+               "alter_sys=True)")
+
+
+def _cli(argv: list, timeout: int = 900, eager: bool = False) -> str:
+    """python -m audfprint_torch <argv> as a subprocess (with the fused
+    path's graphs off when `eager`); returns stdout."""
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-m", "audfprint_torch", *argv],
+    cmd = ["-c", _EAGER_MAIN] if eager else ["-m", "audfprint_torch"]
+    proc = subprocess.run([sys.executable, *cmd, *argv],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=timeout)
     require(proc.returncode == 0,
@@ -2178,13 +2446,15 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
     """cli.do_listen fed through an os.pipe: interactive requests one at a
     time (latency), then a backlog with a missing path (throughput,
     batching); lines equal batch do_match's over the same list."""
-    import threading
-
     from audfprint_torch.utils.audio import audio_write_wav
     from audfprint_torch.utils.timing import Stages
     from audfprint_torch import cli
 
-    ht, matcher = ctx["ht"], ctx["matcher"]
+    from audfprint_torch.match.matcher import Matcher
+
+    ht = ctx["ht"]
+    # a matcher of its own, so that what warmup captures is counted alone
+    matcher = Matcher(device=dev)
     paths = []
     for i, q in enumerate(ctx["queries"][: n_inter + n_backlog]):
         paths.append(os.path.join(d, f"listen{i:02d}.wav"))
@@ -2195,10 +2465,153 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
         + backlog[len(backlog) // 2:]
     args = cli.make_parser().parse_intermixed_args(["match", "--listen"])
     an = cli.setup_analyzer(args, dev)
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
     t0 = time.time()
     n_warm = cli.do_warmup(ht, an, matcher, args, print)
     _sync(torch, dev)
-    print(f"listen: warmup ran {n_warm} paths in {time.time() - t0:.2f} s")
+    t_warm = time.time() - t0
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    warm_keys = matcher._graphs.keys()
+    cap = {_key_name(k): round(v, 4)
+           for k, v in matcher._graphs.capture_seconds().items()}
+    print(f"listen [{nvidia_smi_line()}]: warmup (--warm-durations "
+          f"{args.warm_durations}, --batchsize {args.batchsize}) ran "
+          f"{n_warm} paths in {t_warm:.2f} s and captured {len(warm_keys)} "
+          f"graphs, seconds {cap}; the graph cache holds "
+          f"{matcher._graphs.held_bytes / 2**20:.1f} MiB; reserved "
+          f"{reserved / 2**20:.1f} MiB after warmup, "
+          f"{(reserved - reserved0) / 2**20:.1f} MiB more than before it "
+          f"(table upload included)")
+    require(len(warm_keys) == 8, f"warmup captured {len(warm_keys)} graphs, "
+                                 "not 2 buckets x 2 sizes x 2 dtypes")
+
+    # ---- the listen loop, counted ----
+    _counts_zero()
+    sess = _listen_session(cli, ht, an, matcher, args, inter, backlog)
+    _sync(torch, dev)
+    launches = _counts()
+    one = [k for k in warm_keys if k[0][0] == ((1, 131072), "<i2")]
+    require(len(one) == 1, f"warmup did not capture the interactive "
+                           f"requests' key: {warm_keys}")
+    require(matcher._graphs.keys()[: len(warm_keys)] == warm_keys,
+            "the listen loop captured a warm key again")
+    served = sess["lines"]
+    batch: list = []
+    an.fail_on_error = False
+    cli.do_match(ht, an, matcher, inter + backlog, args, batch.append,
+                 Stages())
+    an.fail_on_error = True
+
+    def results(ls):
+        return [ln for ln in ls if ln.startswith(("Matched", "NOMATCH"))]
+
+    backlog_calls = sess["backlog_calls"]
+    n_ok = len(backlog) - 1
+    bq_s = n_ok / (sess["t_end"] - sess["t_backlog"])
+    lat_ms = sorted(sess["lat_ms"])
+    p50 = lat_ms[len(lat_ms) // 2]
+    errs = [ln for ln in served if ln.startswith("Error reading")]
+    print(f"listen: {n_inter} interactive requests, latency p50 "
+          f"{p50:.2f} ms, max {lat_ms[-1]:.2f} ms (write path -> result "
+          f"line; decode + fused fingerprint and match + one sync each); "
+          f"backlog of {len(backlog)} paths ({n_ok} queries + 1 missing) "
+          f"served in {len(backlog_calls)} do_match calls {backlog_calls}, "
+          f"{bq_s:.1f} q/s; {sess['n_served']} served in all; launches "
+          f"{launches}")
+    require(results(served) == results(batch)
+            and len(results(served)) == len(paths),
+            "listen results differ from batch do_match over the same list")
+    for ln, p in zip(results(served), paths[:n_inter] + [
+            b for b in backlog if b != missing]):
+        require(f"Matched {p} " in ln or f"NOMATCH {p} " in ln,
+                f"listen line out of order: {ln!r} for {p}")
+    require(len(errs) == 1 and missing in errs[0],
+            f"the missing path was not reported once: {errs}")
+    require(len(backlog_calls) < n_ok,
+            f"the backlog took {len(backlog_calls)} do_match calls")
+    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
+            and launches["pair_scan"] > 0,
+            f"a kernel was not launched on the listen path: {launches}")
+    rec["_paths"]["listen"] = launches
+
+    # interactive latency, the eager function against the replays, in
+    # turns over 5 rounds of the 16 requests
+    rounds = {"eager": [], "replay": []}
+    for _r in range(5):
+        for name in ("eager", "replay"):
+            with (eager_fused() if name == "eager"
+                  else contextlib.nullcontext()):
+                ms = sorted(_listen_session(cli, ht, an, matcher, args,
+                                            inter)["lat_ms"])
+            rounds[name].append((ms[len(ms) // 2], ms[-1]))
+    print(f"listen [{nvidia_smi_line()}]: p50 / max ms by round, eager "
+          f"{[(round(a, 2), round(b, 2)) for a, b in rounds['eager']]}, "
+          f"replay {[(round(a, 2), round(b, 2)) for a, b in rounds['replay']]}")
+
+    streamed_beside_capture(ht, dev, d, inter[:2], ctx["tracks"][5],
+                            "track5")
+    return {"listen_p50_ms": p50, "listen_max_ms": lat_ms[-1],
+            "listen_rounds_p50_max_ms": rounds,
+            "listen_backlog_q_per_s": bq_s,
+            "listen_backlog_calls": len(backlog_calls)}
+
+
+def streamed_beside_capture(ht, dev, d, queries, track, name) -> None:
+    """`match --stream-above 20 --batchsize 1` of [query, 30 s track,
+    query] (the queries' WAVs share one key) on a fresh Matcher: chunk 0's
+    fused call captures while the decode thread reads chunk 1, whose
+    streamed route then runs on the device from the dispatching thread.
+    The lines equal the eager function's, one key is captured, and the
+    streamed file matches `name` at rank 0."""
+    from audfprint_torch import cli
+    from audfprint_torch.match.matcher import Matcher
+    from audfprint_torch.utils.audio import audio_write_wav
+    from audfprint_torch.utils.timing import Stages
+
+    long_wav = os.path.join(d, "streamed_beside_capture.wav")
+    audio_write_wav(long_wav, track, SR)
+    mixed = [queries[0], long_wav, queries[1]]
+    args = cli.make_parser().parse_intermixed_args(
+        ["match", "--stream-above", "20", "--batchsize", "1"])
+    an = cli.setup_analyzer(args, dev)
+    lines, n_keys = {}, None
+    for mode in ("graphs", "eager"):
+        m = Matcher(device=dev)
+        lines[mode] = []
+        with (eager_fused() if mode == "eager"
+              else contextlib.nullcontext()):
+            cli.do_match(ht, an, m, mixed, args, lines[mode].append,
+                         Stages())
+        if mode == "graphs":
+            n_keys = len(m._graphs.keys())
+        del m
+    got = [ln for ln in lines["graphs"] if ln.startswith("Matched")]
+    print(f"listen: match --stream-above 20 --batchsize 1 of [query, "
+          f"{len(track) / SR:g} s streamed, query] on a fresh Matcher: "
+          f"{n_keys} graph captured; lines equal the eager function's: "
+          f"{lines['graphs'] == lines['eager']}")
+    require(lines["graphs"] == lines["eager"] and len(got) == 3,
+            f"a streamed file beside a capture: {lines}")
+    require(n_keys == 1, f"{n_keys} keys captured for two queries of one "
+                         "shape")
+    require(got[1].startswith(f"Matched {long_wav} ")
+            and f" {name} " in got[1] and "rank 0" in got[1],
+            f"the streamed file's line: {got[1]!r}")
+
+
+def _listen_session(cli, ht, an, matcher, args, inter,
+                    backlog=()) -> dict:
+    """cli.do_listen over an os.pipe: each path of `inter` written after
+    the previous one's result line, then `backlog` written at once.
+    Returns lat_ms (write -> result line, per interactive path), lines
+    (everything reported), backlog_calls (paths per do_match call after
+    the interactive ones), t_backlog and t_end (perf_counter when the
+    backlog was written and when the loop ended) and n_served."""
+    import threading
+
+    from audfprint_torch.utils.timing import Stages
 
     cond = threading.Condition()
     got: list = []                       # (perf_counter, line)
@@ -2235,7 +2648,7 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
                 with cond:
                     if not cond.wait_for(lambda: n_results() > n0, 120):
                         raise RuntimeError(f"no answer for {p}")
-                    lat.append(got[-1][0] - t)
+                    lat.append(1e3 * (got[-1][0] - t))
             mark["calls"] = len(calls)
             mark["t"] = time.perf_counter()
             writer.write("".join(p + "\n" for p in backlog))
@@ -2247,60 +2660,20 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
 
     cli.do_match = counting
     try:
-        # ---- the listen loop, counted ----
-        _counts_zero()
         th = threading.Thread(target=feeder, daemon=True)
         th.start()
         n_served, _dur = cli.do_listen(ht, an, matcher, args, report,
                                        Stages(), None, stream=reader)
-        _sync(torch, dev)
         t_end = time.perf_counter()
         th.join(timeout=60)
     finally:
         cli.do_match = real
         reader.close()
-    launches = _counts()
-    require(not errors and not th.is_alive(), f"listen feeder: {errors}")
-    served = [ln for _, ln in got]
-    batch: list = []
-    an.fail_on_error = False
-    cli.do_match(ht, an, matcher, inter + backlog, args, batch.append,
-                 Stages())
-    an.fail_on_error = True
-
-    def results(ls):
-        return [ln for ln in ls if ln.startswith(("Matched", "NOMATCH"))]
-
-    backlog_calls = calls[mark["calls"]:]
-    n_ok = len(backlog) - 1
-    bq_s = n_ok / (t_end - mark["t"])
-    lat_ms = sorted(1e3 * t for t in lat)
-    p50 = lat_ms[len(lat_ms) // 2]
-    errs = [ln for ln in served if ln.startswith("Error reading")]
-    print(f"listen: {n_inter} interactive requests, latency p50 "
-          f"{p50:.2f} ms, max {lat_ms[-1]:.2f} ms (write path -> result "
-          f"line; decode + fused fingerprint and match + one sync each); "
-          f"backlog of {len(backlog)} paths ({n_ok} queries + 1 missing) "
-          f"served in {len(backlog_calls)} do_match calls {backlog_calls}, "
-          f"{bq_s:.1f} q/s; {n_served} served in all; launches {launches}")
-    require(results(served) == results(batch)
-            and len(results(served)) == len(paths),
-            "listen results differ from batch do_match over the same list")
-    for ln, p in zip(results(served), paths[:n_inter] + [
-            b for b in backlog if b != missing]):
-        require(f"Matched {p} " in ln or f"NOMATCH {p} " in ln,
-                f"listen line out of order: {ln!r} for {p}")
-    require(len(errs) == 1 and missing in errs[0],
-            f"the missing path was not reported once: {errs}")
-    require(len(backlog_calls) < n_ok,
-            f"the backlog took {len(backlog_calls)} do_match calls")
-    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
-            and launches["pair_scan"] > 0,
-            f"a kernel was not launched on the listen path: {launches}")
-    rec["_paths"]["listen"] = launches
-    return {"listen_p50_ms": p50, "listen_max_ms": lat_ms[-1],
-            "listen_backlog_q_per_s": bq_s,
-            "listen_backlog_calls": len(backlog_calls)}
+    require(not errors and not th.is_alive() and len(lat) == len(inter),
+            f"listen feeder: {errors}")
+    return {"lat_ms": lat, "lines": [ln for _, ln in got],
+            "backlog_calls": calls[mark["calls"]:], "t_backlog": mark["t"],
+            "t_end": t_end, "n_served": n_served}
 
 
 def phase_wide(torch, rec, ctx, dev, hashbits=None) -> dict:
@@ -2361,7 +2734,7 @@ def phase_wide(torch, rec, ctx, dev, hashbits=None) -> dict:
 
     an = ctx["an"]
     m = Matcher(device=dev)
-    m.match_samples_fused(an, ht, queries[:8])     # upload + warm shapes
+    m.match_samples_fused(an, ht, queries)     # upload + capture its graph
     _sync(torch, dev)
     # ---- the fused path on the wide table, counted ----
     _counts_zero()
@@ -2481,6 +2854,7 @@ def phase_cli() -> dict:
             ndev = ex.submit(phase_cli_ndev, d, wavs, query, rank0)
             serving = phase_cli_serving(d, db, wavs, songs, query, q, rank0)
             serving.update(ndev.result())
+        serving.update(oneshot_match(d, db, query, rank0))
     with tempfile.TemporaryDirectory() as d:
         got = golden_session(d, lambda argv: main(argv, device="cuda"))
     with open(os.path.join(ROOT, "tests", "golden", "cli_session.txt")) as f:
@@ -2494,6 +2868,33 @@ def phase_cli() -> dict:
         print(f"  line {i + 1}: golden {a!r}\n           card   {b!r}")
     return {"golden_lines_differing": ndiff, "cli_device_store_same_db":
             same_db, **serving}
+
+
+def oneshot_match(d, db, query, rank0, rounds: int = 3) -> dict:
+    """A one-shot `match -d db query` process, what a user who matches
+    one file pays: its one key's first call warms, captures and replays
+    a graph, where the eager function ran once before the graphs.  The
+    two in turns over `rounds`: process wall, the CLI's elapsed seconds
+    and its dispatch stage (--json-metrics)."""
+    smi = nvidia_smi_line()
+    got = {"eager": [], "graphs": []}
+    for r in range(rounds):
+        for mode in got:
+            mj = os.path.join(d, f"oneshot_{mode}{r}.json")
+            t0 = time.time()
+            out = _cli(["match", "-d", db, "--json-metrics", mj, query],
+                       eager=mode == "eager")
+            wall = time.time() - t0
+            require(re.search(rank0, out) is not None,
+                    f"one-shot match ({mode}): no rank-0 line")
+            with open(mj) as f:
+                m = json.load(f)
+            got[mode].append((round(wall, 3), m["elapsed_s"],
+                              round(m["stage_seconds"]["dispatch"], 4)))
+    print(f"one-shot CLI match of an 8 s query [{smi}]: (process wall s, "
+          f"elapsed s, dispatch s) by round, eager {got['eager']}, graphs "
+          f"{got['graphs']}")
+    return {"oneshot_match_s": got}
 
 
 def phase_cli_ndev(d, wavs, query, rank0, ndev: int = 4) -> dict:
@@ -3142,6 +3543,7 @@ def main() -> int:
                                                torch, rec)
         summary.update(main_summary)
         summary.update(timed("vote_rows", phase_vote_rows, torch, ctx, dev))
+        summary.update(timed("graphs", phase_graphs, torch, rec, ctx, dev))
         summary.update(timed("device_store", phase_device_store, torch, rec,
                              ctx["tracks"], ctx["ht"], t_two_stage, dev))
         summary.update(timed("sharded", phase_sharded, torch, rec, ctx, dev))
