@@ -44,6 +44,7 @@ from audfprint_torch.models.ingest import DeviceIngest
 from audfprint_torch.ops import cuda_peaks as CP
 from audfprint_torch.ops import landmarks as L
 from audfprint_torch.ops import spectro as SP
+from audfprint_torch.utils import graphs
 from audfprint_torch.utils.device import resolve_device
 
 COMMANDS = ("new", "add", "precompute", "merge", "newmerge", "match",
@@ -624,25 +625,23 @@ def do_match(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
     return n_done, tot_dur
 
 
-def do_warmup(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
-              args, report) -> int:
-    """`warmup -d db`: get a serving process ready before its first query.
-    Builds the kernel library into build/audfprint_torch/ if it is missing
-    (a later process loads it instead of running nvcc), uploads the table,
-    and runs the two-stage and the fused fingerprint + match once for each
-    --warm-durations bucket at sub-batch sizes 1 and --batchsize's power
-    of two: the shapes a `match` / `match --listen` process uses, so cuFFT
-    plans and the caching allocator are set up too.  On a CUDA device the
-    fused calls capture the Matcher's CUDA graphs for those keys, for
-    float32 input and for int16 PCM (what a 16-bit WAV at the analysis
-    rate decodes to), so that the process's later calls replay them.
+def warm_serving(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
+                 args, report) -> int:
+    """The serving keys of `warmup` and `match --listen`, run once each:
+    for every --warm-durations bucket, the two-stage fingerprint of
+    --batchsize's power of two float32 clips, and at sub-batch sizes 1
+    and that power of two the two-stage vote of their hashes and the
+    fused fingerprint + match of float32 clips and of int16 PCM (what a
+    16-bit WAV at the analysis rate decodes to).  On a CUDA device each
+    of these calls captures the CUDA graph of its key (the Analyzer's
+    fingerprint, the Matcher's vote and fused function), so the
+    process's later calls of those keys replay them (a fused row flagged
+    for a re-match adds its re-match's two-stage keys); cuFFT plans, the
+    kernel library and the table upload are set up too.
 
     Returns the count the JAX package reports: one fingerprint batch per
     duration plus one or two match paths per batch size (the fused one
     only where it is eligible)."""
-    if analyzer.device.type == "cuda":
-        from audfprint_torch.ops import _build
-        _build.load()
     rng = np.random.default_rng(0)
     sr = analyzer.target_sr
     durs = [float(x) for x in args.warm_durations.split(",") if x.strip()]
@@ -666,6 +665,23 @@ def do_warmup(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
     return len(durs) + n_graphs
 
 
+def do_warmup(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
+              args, report) -> int:
+    """`warmup -d db`: get a serving host ready before its first query.
+    Builds the kernel library into build/audfprint_torch/ if it is missing
+    (a later process loads it instead of running nvcc), uploads the table,
+    and runs warm_serving: the shapes a `match` / `match --listen` process
+    uses, captured as CUDA graphs on a CUDA device.  Those graphs live in
+    this process and die with it: CUDA graphs cannot be kept across
+    processes as the JAX package's persistent compile cache keeps its
+    executables, so `match --listen` captures the same keys itself before
+    it reads its first line.  Returns warm_serving's count."""
+    if analyzer.device.type == "cuda":
+        from audfprint_torch.ops import _build
+        _build.load()
+    return warm_serving(ht, analyzer, matcher, args, report)
+
+
 def do_listen(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
               args, report, stages: Stages, out_f,
               stream=None) -> tuple[int, float]:
@@ -680,11 +696,28 @@ def do_listen(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
     waiting for more, so an interactive caller (write a path, wait for the
     answer) gets single-query latency and a backlog is served in batches.
 
+    On a device that captures graphs the loop first runs warm_serving,
+    printing nothing, so that the first request of each warm key replays
+    a captured graph (the counterpart of the JAX package's persistent
+    compile cache, which a `warmup` process fills for later ones).  The
+    graph captures of the warm-up and of the serving loop are recorded
+    in `stages`' metadata (--json-metrics: listen_graph_captures).
+
     A bad request must not end the service: decode and load errors are
     reported as "Error reading <name>: ..." (fail_on_error is off for the
     loop and restored after it).  Any other error, a CUDA one included,
     propagates."""
     stream = stream if stream is not None else sys.stdin
+    c0 = graphs.counts["captures"]
+    if graphs.captures(analyzer.device):
+        # silent: the matcher's notes would add lines to the output
+        verbose, matcher.verbose = matcher.verbose, 0
+        try:
+            with stages.time("warm"):
+                warm_serving(ht, analyzer, matcher, args, lambda msg: None)
+        finally:
+            matcher.verbose = verbose
+    c1 = graphs.counts["captures"]
     prev_fail = analyzer.fail_on_error
     analyzer.fail_on_error = False
     n_files, tot_dur = 0, 0.0
@@ -727,6 +760,8 @@ def do_listen(ht: HashTable, analyzer: Analyzer, matcher: Matcher,
             (out_f or sys.stdout).flush()
     finally:
         analyzer.fail_on_error = prev_fail
+        stages.add_meta(listen_graph_captures={
+            "warm": c1 - c0, "serving": graphs.counts["captures"] - c1})
     return n_files, tot_dur
 
 
@@ -845,7 +880,8 @@ def main(argv=None, device=None) -> int:
                             total_dur_s=round(tot_dur, 3),
                             elapsed_s=round(elapsed, 3),
                             kernel_launches={**SP.launches, **CP.launches,
-                                             **L.launches})
+                                             **L.launches},
+                            graphs=dict(graphs.counts))
             stages.dump_json(args.json_metrics)
     finally:
         if prof is not None:         # a command raised: end the session

@@ -8,9 +8,10 @@ so repeated queries against one DB pay the transfer once.  The fused path
 fingerprints and matches a batch of sample arrays in one call
 (_fused_match_graph) and re-matches the rare row past its static caps
 through the two-stage path, so it never changes results.  On one CUDA
-device the fused function is captured as a CUDA graph per shape key and
-replayed (utils/graphs.GraphCache, the counterpart of the JAX package's
-jitted executable).  The serving
+device the fused function and the two-stage path's vote are each
+captured as a CUDA graph per shape key and replayed (utils/graphs.
+GraphCache, the counterpart of the JAX package's jitted executables
+_fused_match_graph and match_batch_packed).  The serving
 modes ride the batched match: match_hashes_windowed (broadcast monitoring)
 and match_samples_sweep (playback-speed corrections); illustrate_match and
 sonify_match are host diagnostics on top of match_hashes.
@@ -62,6 +63,15 @@ def _fused_match_graph(audio, lengths, table, counts, hpi, hpi_plane, pcfg,
     extra = torch.stack([cnt, maxt.to(cnt.dtype), torch.full_like(cnt, qce),
                          zero, zero, zero, zero], dim=-1)
     return torch.cat([packed, extra[:, None, :].to(packed.dtype)], dim=1)
+
+
+def _two_stage_vote(qt, qh, qv, table, counts, hpi, hpi_plane, tcfg, mcfg,
+                    core: str) -> torch.Tensor:
+    """The two-stage path's vote on one device, as its graphs capture it:
+    (B, Q) query (t, hash, valid) columns -> match_batch_packed's
+    (B, max_returns, 7) rows."""
+    return voting.match_batch_packed(table, counts, hpi, qt, qh, qv, tcfg,
+                                     mcfg, core, hpi_plane)
 
 
 def _shards_per_device(mesh) -> int:
@@ -133,9 +143,12 @@ class Matcher:
         self.ndev = ndev
         self._dev = None          # (weakref to ht, revision) -> device state
         self._fallback_dev = None
-        # the single-device fused path's captured graphs, one per shape key
+        # the single-device captured graphs, one per shape key: the fused
+        # path's, and the two-stage path's vote
         self._graphs = graphs.GraphCache(_fused_match_graph, self.device,
                                          pipe.launch_counters())
+        self._votes = graphs.GraphCache(_two_stage_vote, self.device,
+                                        pipe.launch_counters())
 
     # Device-memory budget for one voting call; None = derive from the
     # device on first use.  Set it to split batches on small devices.
@@ -180,6 +193,7 @@ class Matcher:
                 or self._dev[1] != (rev, ndev):
             # the graphs read the old tensors: drop them before re-staging
             self._graphs.clear()
+            self._votes.clear()
             ncap = _next_pow2(max(1, len(ht.names)), 256)
             hpi = np.zeros(ncap, np.int32)
             hpi[: len(ht.hashesperid)] = np.minimum(ht.hashesperid,
@@ -213,18 +227,17 @@ class Matcher:
         self._dev = None
         self._fallback_dev = None
         self._graphs.clear()
+        self._votes.clear()
 
     # -- core -------------------------------------------------------------
 
     def _budget_bytes(self) -> int:
-        """Voting memory budget: a third of the device's memory, between
-        256 MiB and 8 GiB (4 GiB on the CPU)."""
+        """Voting memory budget, which the captured graphs' bytes count
+        against too: a third of the device's memory, between 256 MiB and
+        8 GiB (4 GiB on the CPU; graphs.budget_bytes)."""
         if self.mem_budget_bytes is not None:
             return self.mem_budget_bytes
-        if self.device.type != "cuda":
-            return 4 << 30
-        _free, total = torch.cuda.mem_get_info(self.device)
-        return min(max(1 << 28, total // 3), 8 << 30)
+        return graphs.budget_bytes(self.device)
 
     def _sorted_bytes_per_row(self, tcfg, Q: int, mesh=None) -> int:
         """Footprint of the sorted core per query row, in int64 hit-domain
@@ -302,8 +315,11 @@ class Matcher:
         # the sorted core everywhere: its memory is independent of maxtime
         # and query length, so the envelope only ever splits the batch; on
         # a mesh the same vote runs after the hit exchange.  force_core
-        # pins the histogram core (the equivalence reference).
+        # pins the histogram core (the equivalence reference).  One device
+        # replays the vote's captured graphs; the mesh and its fallback
+        # below run eagerly.
         core = self.force_core or "sorted"
+        votes = self._votes if mesh is None else None
         if core not in ("sorted", "hist"):
             raise ValueError(f"unknown voting core {core!r}")
         if mesh is not None and core == "hist" and self._voting_bytes_per_row(
@@ -326,6 +342,7 @@ class Matcher:
                 table, counts, tcfg, hpi, hpi_plane = fb[2:]
             mesh = None
             core = "sorted"
+            votes = None
         if core == "hist":
             per_row = self._voting_bytes_per_row(tcfg, qt_cap, Q, mesh)
         else:
@@ -343,13 +360,19 @@ class Matcher:
             chunk += [np.zeros((0, 2), np.int32)] * pad
             rows = self._match_padded(table, counts, hpi, tcfg, ncap,
                                       chunk, Q, qt_cap, core, mesh,
-                                      hpi_plane)
+                                      hpi_plane, votes, per_row * bsub)
             results.extend(rows[: len(rows) - pad] if pad else rows)
         return results
 
     def _match_padded(self, table, counts, hpi, tcfg, ncap,
                       hash_lists, Q: int, qt_cap: int, core: str = "sorted",
-                      mesh=None, hpi_plane=None) -> list:
+                      mesh=None, hpi_plane=None, votes=None,
+                      need: int = 0) -> list:
+        """One sub-batch of query (t, hash) lists -> its rows.  With
+        `votes` (a GraphCache of _two_stage_vote) the vote replays the
+        graph of its key, (rows, Q, qt_cap, tcfg, mcfg, core, plane
+        present); `need` is its capture's byte estimate for the budget
+        rule (graphs.make_room).  Without, it runs eagerly."""
         B = len(hash_lists)
         tt = np.zeros((B, Q), np.int32)
         hh = np.zeros((B, Q), np.int32)
@@ -362,11 +385,18 @@ class Matcher:
         mcfg = self._mcfg(qt_cap, ncap)
         if mesh is None:
             dev = self.device
-            out = voting.match_batch_packed(
-                table, counts, hpi, torch.as_tensor(tt, device=dev),
-                torch.as_tensor(hh, device=dev),
-                torch.as_tensor(vv, device=dev), tcfg, mcfg, core,
-                hpi_plane if core == "sorted" else None)
+            state = (table, counts, hpi,
+                     hpi_plane if core == "sorted" else None)
+            static = (tcfg, mcfg, core)
+            if votes is None:
+                out = _two_stage_vote(
+                    *(torch.as_tensor(a, device=dev) for a in (tt, hh, vv)),
+                    *state, *static)
+            else:
+                graphs.make_room(
+                    dev, votes.need([((tt, hh, vv), state, static, need)]),
+                    self._budget_bytes())
+                out = votes((tt, hh, vv), state, static)
         elif core == "sorted":
             from audfprint_torch.parallel import sharded
             # the RLE exchange splits the batch axis over the mesh: pad B
@@ -445,11 +475,14 @@ class Matcher:
     def match_samples_fused_async(self, analyzer, ht, signals: list):
         """Queue the fused fingerprint+match for a list of sample arrays.
         Returns a handle for match_fused_resolve, or None when the
-        histogram core is pinned or the groups' voting buffers together
-        pass the memory budget (the caller then takes the two-stage path).
+        histogram core is pinned or the voting buffers pass the memory
+        budget: every group's where the groups run eagerly, each key's
+        once where they replay graphs (the caller then takes the
+        two-stage path).
         On one device each group replays the captured graph of its key
         (rows, bucket length, int16 or float32 input, qcap, the configs,
-        the hpi plane), capturing it on the key's first call.  On a mesh
+        the hpi plane), capturing it on the key's first call after the
+        budget rule (graphs.make_room).  On a mesh
         each group goes through sharded.sharded_fused_match_cached: every
         shard fingerprints its slice of the batch, then the hit exchange
         and the vote; same readback row, same rows as the two-stage mesh
@@ -462,14 +495,7 @@ class Matcher:
         budget = self._budget_bytes()
         groups = analyzer.stage_groups(signals)
         state = (table, counts, hpi, hpi_plane)
-        qcaps = []
-        # every group is queued before any resolves, so their buffers can
-        # be live together: budget the sum.  Captured graphs keep theirs in
-        # the cache's pool (held_bytes), which a group of a captured key
-        # reuses and a new key's capture adds to
-        replays = mesh is None and graphs.captures(self.device)
-        footprint = self._graphs.held_bytes
-        new_keys = set()
+        qcaps, calls = [], []
         for _idxs, batch, lens in groups:
             # static query-hash cap per bucket: ~density unique hashes/s,
             # 1.5x + 64 headroom; an underestimate only costs a re-match
@@ -477,17 +503,24 @@ class Matcher:
             qcap = self.fused_qcap or _next_pow2(
                 int(dur * analyzer.density * 1.5) + 64, 128)
             qcaps.append(qcap)
-            if replays:
-                static = (analyzer.config, tcfg, mcfg, qcap)
-                key = self._graphs.key((batch, lens), state, static)
-                if key in new_keys or self._graphs.holds((batch, lens),
-                                                         state, static):
-                    continue
-                new_keys.add(key)
-            footprint += (self._sorted_bytes_per_row(tcfg, qcap, mesh)
-                          * len(lens))
-            if footprint > budget:
+            calls.append(((batch, lens), state,
+                          (analyzer.config, tcfg, mcfg, qcap),
+                          self._sorted_bytes_per_row(tcfg, qcap, mesh)
+                          * len(lens)))
+        if mesh is None and graphs.captures(self.device):
+            # each key's graph keeps its voting buffers in the shared
+            # pool, which every group of that key reuses: the keys, each
+            # once, must fit the budget; new keys that would not fit
+            # beside what the caches hold clear them first
+            # (graphs.make_room)
+            keys = {self._graphs.key(*c[:3]): c[3] for c in calls}
+            if sum(keys.values()) > budget:
                 return None
+            graphs.make_room(self.device, self._graphs.need(calls), budget)
+        elif sum(c[3] for c in calls) > budget:
+            # every group is queued before any resolves, so their buffers
+            # can be live together: budget the sum
+            return None
         outs = []
         for (idxs, batch, lens), qcap in zip(groups, qcaps):
             if mesh is not None:

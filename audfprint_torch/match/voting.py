@@ -825,9 +825,12 @@ def match_core(table: torch.Tensor, counts: torch.Tensor,
         qt_f = torch.clamp(
             qtimes.long()[:, :, None].expand(B, Q, depth).reshape(B, H),
             0, mcfg.qt_cap - 1)
-        tq = torch.tensor(mcfg.time_quantile, dtype=torch.float32, device=dev)
-        tq1 = torch.tensor(1.0 - mcfg.time_quantile, dtype=torch.float32,
-                           device=dev)
+        # filled on the device: an upload would wait for the stream and
+        # cannot be captured in a CUDA graph
+        tq = torch.full((), mcfg.time_quantile, dtype=torch.float32,
+                        device=dev)
+        tq1 = torch.full((), 1.0 - mcfg.time_quantile, dtype=torch.float32,
+                         device=dev)
         rank_c = torch.clamp(rank_f, max=SD - 1)
         min_ts, max_ts = [], []
         for s in range(Mc):

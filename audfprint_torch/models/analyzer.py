@@ -3,9 +3,12 @@
 Mirrors the reference class surface (wavfile2hashes / wavfile2peaks /
 ingest) plus the batched entry points.  All DSP runs through
 ops.pipeline on `device`; decode stays on the host.  Audio lengths are
-padded into geometric buckets so batches share a few shapes.  WAVs longer
-than `stream_above_sec` take the chunked streamed route
-(models/streaming.py) with O(chunk) host and device memory.
+padded into geometric buckets so batches share a few shapes.  On one
+CUDA device the batched fingerprint (fingerprint_batch_compact_k, the
+JAX package's jitted function of that name) is captured as a CUDA graph
+per shape key and replayed (utils/graphs.GraphCache).  WAVs longer than
+`stream_above_sec` take the chunked streamed route (models/streaming.py)
+with O(chunk) host and device memory.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from audfprint_torch.utils import audio as audio_io
 from audfprint_torch.utils import formats
 from audfprint_torch.models import streaming as STM
 from audfprint_torch.ops import pipeline as pipe
+from audfprint_torch.utils import graphs
 from audfprint_torch.utils.device import resolve_device
 
 
@@ -66,6 +70,9 @@ class Analyzer:
         # and device memory (models/streaming.py).  0 disables streaming.
         self.stream_above_sec = 3600.0
         self.stream_chunk_frames = 8192
+        # the batched fingerprint's captured graphs, one per shape key
+        self._graphs = graphs.GraphCache(pipe.fingerprint_batch_compact_k,
+                                         self.device, pipe.launch_counters())
 
     # -- config ---------------------------------------------------------
 
@@ -226,15 +233,21 @@ class Analyzer:
 
     def fingerprint_async(self, signals: list):
         """Queue fingerprinting of sample arrays on the device without
-        waiting; returns a handle for fingerprint_resolve."""
-        handle = []
-        for idxs, batch, lens in self.stage_groups(signals):
+        waiting; returns a handle for fingerprint_resolve.  Each group
+        replays the captured graph of its key (rows, bucket length, int16
+        or float32 input, config, k), captured on the key's first call
+        after the budget rule (graphs.make_room)."""
+        cfg = self.config
+        groups = self.stage_groups(signals)
+        calls = []
+        for _idxs, batch, lens in groups:
             k = self._hash_cap_estimate(batch.shape[1] / self.target_sr)
-            dev = pipe.fingerprint_batch_compact_k(
-                torch.as_tensor(batch, device=self.device),
-                torch.as_tensor(lens, device=self.device),
-                self.config, k=k)
-            handle.append((idxs, dev))
+            calls.append(((batch, lens), (), (cfg, k),
+                          pipe.fingerprint_bytes(*batch.shape, cfg)))
+        graphs.make_room(self.device, self._graphs.need(calls),
+                         graphs.budget_bytes(self.device))
+        handle = [(idxs, self._graphs(*call[:3]))
+                  for (idxs, _b, _l), call in zip(groups, calls)]
         return (len(signals), handle)
 
     def fingerprint_resolve(self, handle) -> list:

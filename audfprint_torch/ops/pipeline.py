@@ -154,6 +154,20 @@ def fingerprint_batch_compact_k(audio: torch.Tensor, lengths: torch.Tensor,
     return torch.cat([th[:, :kk], extra], dim=1), th
 
 
+def fingerprint_bytes(rows: int, n: int, cfg: PipelineConfig) -> int:
+    """An estimate of the device bytes fingerprint_batch_compact_k keeps
+    live for a (rows, n) batch, which its captured graph holds in the
+    graphs' shared pool: per row and shift the audio twice, the framed
+    signal, eight spectrogram-sized float32 arrays (the rfft's complex
+    output counts two) and 64 bytes per landmark slot for the pairing,
+    its sort and the compaction."""
+    T = SP.n_frames_padded(n, cfg)
+    slots = T * cfg.maxpksperframe * cfg.maxpairsperpeak
+    per = (8 * n + 4 * T * cfg.n_fft + 32 * T * (cfg.n_fft // 2 + 1)
+           + 64 * slots)
+    return rows * cfg.shifts * per
+
+
 def resolve_compact(th: torch.Tensor, counts) -> list:
     """Materialise fingerprint_batch_compact outputs as (n, 2) int32
     arrays, fetching only a power-of-two column slice covering max(counts)."""

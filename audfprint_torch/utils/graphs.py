@@ -1,38 +1,44 @@
 """Captured CUDA graphs, one per shape key: the port's counterpart of the
 executable cache of jax.jit.
 
-The JAX package compiles its fused fingerprint + match once per static
-shape and replays the executable.  PyTorch runs eagerly, so each query
-dispatches its hundreds of ops from Python again.  GraphCache captures a function into a torch.cuda.CUDAGraph on
-the first call of a key, as jax.jit compiles on its first call, and
-replays the graph on every later call: the input copies, one graph launch
-and a clone of the output.
+The JAX package compiles its serving functions once per static shape and
+replays the executable: the fused fingerprint + match, and the two
+halves of the two-stage path (`fingerprint_batch_compact_k` and
+`match_batch_packed`).  PyTorch runs eagerly, so each call dispatches
+its hundreds of ops from Python again.  GraphCache captures a function
+into a torch.cuda.CUDAGraph on the first call of a key, as jax.jit
+compiles on its first call, and replays the graph on every later call:
+the input copies, one graph launch and a clone of the output.
 
 Key: each host input's (shape, dtype) (rows, bucket length, int16 PCM or
 float32), which entries of the device state are None (the hpi plane) and
-the static arguments (qcap, pcfg, tcfg, mcfg).  A graph reads the device
-state it was captured with by address, so the cache holds that state and
-drops every graph when a call passes another: no graph replays against a
-table that was freed or replaced.
+the static arguments.  A graph reads the device state it was captured
+with by address, so the cache holds that state and drops every graph
+when a call passes another: no graph replays against a table that was
+freed or replaced.
 
-An entry holds the static input buffers, the graph and its static output.
-The inputs are staged through pinned host memory and copied without
-blocking; the caching host allocator keeps a pinned block until the copy
-that reads it has run, so the next call's staging cannot overwrite it.
+An entry holds the static input buffers, the graph and its static output
+(a tensor or a tuple of tensors).  The inputs are staged through pinned
+host memory and copied without blocking; the caching host allocator
+keeps a pinned block until the copy that reads it has run, so the next
+call's staging cannot overwrite it.
 
 Two calls may share a key before the caller reads either result (the
-Matcher queues every group of a batch before it resolves any), so each
-replay is followed by a clone of the static output on the same stream:
-the next replay overwrites the static output only after the clone has
-read it.
+Matcher and the Analyzer queue every group of a batch before they
+resolve any), so each replay is followed by a clone of every static
+output on the same stream: the next replay overwrites them only after
+the clones have read them.
 
-Memory: the graphs of one cache draw on one shared private pool.  They
-replay one at a time on one stream, and what one replay leaves for later
-lies outside the pool (the static inputs, filled before the replay; the
-clone of the output, taken right after it), so a graph may reuse another
-graph's intermediates in any replay order.  The pool's bytes and the
-static inputs are counted in `held_bytes`, which the Matcher adds to its
-memory budget.
+Memory: every cache on one device draws on one shared private pool.
+The graphs replay one at a time on one stream, and what one replay
+leaves for later lies outside the pool (the static inputs, filled
+before the replay; the clones of the outputs, taken right after it), so
+a graph may reuse any other graph's intermediates in any replay order.
+held_bytes(device) counts the pool's growth over its captures and the
+static inputs of every cache on the device.  The budget rule
+(make_room): a new key whose capture would not fit beside what the
+caches hold clears every cache on the device, pool included, before it
+is captured; `counts["budget_clears"]` counts those clears.
 
 No fallback: on a CUDA device a failed capture or replay raises.  A CPU
 device, which a caller asks for by name, captures nothing and runs the
@@ -42,16 +48,86 @@ function directly.
 from __future__ import annotations
 
 import time
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+# process-wide: keys captured, graph replays, and clears made by the
+# budget rule (the CLI's --json-metrics records them)
+counts = {"captures": 0, "replays": 0, "budget_clears": 0}
 
 
 def captures(device: torch.device) -> bool:
     """Whether calls on `device` replay captured graphs: every CUDA device
     does; a CPU device runs the function directly."""
     return device.type == "cuda"
+
+
+def budget_bytes(device: torch.device) -> int:
+    """The default device-memory budget of one call and of the graphs:
+    a third of the device's memory, between 256 MiB and 8 GiB (4 GiB on
+    the CPU)."""
+    if device.type != "cuda":
+        return 4 << 30
+    _free, total = torch.cuda.mem_get_info(device)
+    return min(max(1 << 28, total // 3), 8 << 30)
+
+
+class _Shared:
+    """What the caches on one device share: the private pool their graphs
+    draw on and the bytes its captures added."""
+
+    def __init__(self):
+        self.pool = None
+        self.pool_bytes = 0
+        self.caches = weakref.WeakSet()
+
+    def live(self) -> bool:
+        return any(c.keys() for c in self.caches)
+
+
+_SHARED: dict = {}
+
+
+def _shared(device: torch.device) -> _Shared:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _SHARED.setdefault(dev, _Shared())
+
+
+def held_bytes(device: torch.device) -> int:
+    """Bytes the graph caches on `device` hold: their shared pool's growth
+    over its captures and every cache's static inputs."""
+    sh = _shared(device)
+    if not sh.live():
+        return 0
+    return sh.pool_bytes + sum(c.input_bytes for c in sh.caches)
+
+
+def clear(device: torch.device) -> None:
+    """Drop every graph of every cache on `device`; the pool goes with
+    them."""
+    for cache in list(_shared(device).caches):
+        cache.clear()
+
+
+def make_room(device: torch.device, need: int, budget: int) -> bool:
+    """The budget rule, applied before a call captures new keys whose
+    captures need about `need` bytes: when they would not fit in `budget`
+    beside what the caches on the device hold, every cache there is
+    cleared first (counted in counts["budget_clears"]).  Returns whether
+    it cleared."""
+    if need <= 0 or not captures(device):
+        return False
+    held = held_bytes(device)
+    if held == 0 or held + need <= budget:
+        return False
+    clear(device)
+    counts["budget_clears"] += 1
+    return True
 
 
 def _warm(fn, device: torch.device) -> None:
@@ -91,13 +167,21 @@ def _staged(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory() if device.type == "cuda" else t
 
 
+def _clone(out):
+    if isinstance(out, tuple):
+        return tuple(o.clone() for o in out)
+    return out.clone()
+
+
 class _Entry(NamedTuple):
     """One captured key."""
     inputs: tuple         # static input buffers
     graph: object
-    out: torch.Tensor     # static output
+    out: object           # static output: a tensor or a tuple of them
     launches: dict        # kernel launches one replay makes
     capture_s: float      # wall seconds of the warm-up run and the capture
+    pool_bytes: int       # what its capture added to the shared pool
+    input_bytes: int      # its static input buffers
 
 
 class GraphCache:
@@ -115,8 +199,7 @@ class GraphCache:
         self.counters = counters
         self._entries: dict = {}
         self._state: tuple = ()
-        self._pool = None
-        self.held_bytes = 0
+        _shared(self.device).caches.add(self)
 
     @staticmethod
     def key(inputs, state, static) -> tuple:
@@ -132,21 +215,50 @@ class GraphCache:
         return self._same_state(state) and \
             self.key(inputs, state, static) in self._entries
 
+    def need(self, calls) -> int:
+        """Bytes the captures of a batch of calls need: the estimate of
+        each (inputs, state, static, nbytes) call whose key is neither
+        captured nor met earlier in `calls`."""
+        seen, total = set(), 0
+        for inputs, state, static, nbytes in calls:
+            key = self.key(inputs, state, static)
+            if key in seen or self.holds(inputs, state, static):
+                continue
+            seen.add(key)
+            total += nbytes
+        return total
+
+    @property
+    def input_bytes(self) -> int:
+        return sum(e.input_bytes for e in self._entries.values())
+
+    @property
+    def held_bytes(self) -> int:
+        """What this cache's captures added to the shared pool, and its
+        static inputs."""
+        return sum(e.pool_bytes + e.input_bytes
+                   for e in self._entries.values())
+
+    def held_by_key(self) -> dict:
+        return {k: e.pool_bytes + e.input_bytes
+                for k, e in self._entries.items()}
+
     def capture_seconds(self) -> dict:
         return {k: e.capture_s for k, e in self._entries.items()}
 
     def clear(self) -> None:
-        """Drop every graph, its pool and the device state it reads."""
+        """Drop every graph and the device state it reads, once the
+        replays already queued have run."""
+        if self._entries and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self._entries = {}
         self._state = ()
-        self._pool = None
-        self.held_bytes = 0
 
     def _same_state(self, state) -> bool:
         return len(state) == len(self._state) and all(
             a is b for a, b in zip(state, self._state))
 
-    def __call__(self, inputs, state, static) -> torch.Tensor:
+    def __call__(self, inputs, state, static):
         dev = self.device
         if not captures(dev):
             return self.fn(*(torch.as_tensor(a, device=dev) for a in inputs),
@@ -161,8 +273,9 @@ class GraphCache:
         for buf, a in zip(entry.inputs, inputs):
             buf.copy_(_staged(a, dev), non_blocking=True)
         entry.graph.replay()
+        counts["replays"] += 1
         self._add_launches(entry.launches)
-        return entry.out.clone()
+        return _clone(entry.out)
 
     def _launch_snapshot(self) -> dict:
         return {(i, k): n for i, d in enumerate(self.counters)
@@ -174,6 +287,10 @@ class GraphCache:
 
     def _capture(self, key, inputs, state, static) -> _Entry:
         dev = self.device
+        sh = _shared(dev)
+        if not sh.live():
+            # no graph is left in the pool: start a new one
+            sh.pool, sh.pool_bytes = None, 0
         t0 = time.perf_counter()
         bufs = []
         for a in inputs:
@@ -190,13 +307,14 @@ class GraphCache:
         # nothing is launched, so those counts become the graph's own,
         # added back at each replay
         before = self._launch_snapshot()
-        graph, out, self._pool, grown = _record(run, dev, self._pool)
+        graph, out, sh.pool, grown = _record(run, dev, sh.pool)
         after = self._launch_snapshot()
         launches = {k: n - before.get(k, 0) for k, n in after.items()
                     if n != before.get(k, 0)}
         self._add_launches({k: -n for k, n in launches.items()})
-        entry = _Entry(bufs, graph, out, launches, time.perf_counter() - t0)
+        entry = _Entry(bufs, graph, out, launches, time.perf_counter() - t0,
+                       grown, sum(b.numel() * b.element_size() for b in bufs))
         self._entries[key] = entry
-        self.held_bytes += grown + sum(b.numel() * b.element_size()
-                                       for b in bufs)
+        sh.pool_bytes += grown
+        counts["captures"] += 1
         return entry

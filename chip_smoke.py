@@ -71,7 +71,13 @@ Phases (any failure exits non-zero before the result line):
      recording of two songs, `warmup` then `match --speed-sweep 4` on a
      +4% query, and `match --profile DIR -I --sonify` (a trace naming
      prune_fwd_bwd, hpf_scan and pair_scan, and its count of kernel
-     events; the sonify WAV); then the golden CLI
+     events; the sonify WAV); a one-shot `match` process, eager against
+     graphs; `warmup -d db` then fresh `match --listen -d db` processes
+     over a pipe (listen_processes): 16 requests of the warm buckets,
+     each key's first request, p50 and max, the CLI as it is in turns
+     with its graphs off and with each key captured on its first
+     request; no capture after the first line (--json-metrics), lines
+     equal batch mode; then the golden CLI
      session of tests/golden/cli_session.txt on the card, reporting
      differing lines
  10. BASELINE config 3 ("Noisy + resampled 5s queries with --shifts 4 /
@@ -83,14 +89,18 @@ Phases (any failure exits non-zero before the result line):
      plain, the 4 speed conditions again through
      Matcher.match_samples_sweep(..., 4.0); recall >= 0.95 on clean, SNR
      10, SNR 5 and lowpass 3 kHz, and the sweep recovering every speed
-     condition
+     condition; then the same queries plain and swept, eager against the
+     two-stage path's replayed graphs in turns over 5 rounds, rows equal
  11. broadcast monitoring: a seeded 7,200 s WAV of 360 x 20 s segments,
      every third a frame-aligned excerpt of a distinct config-2 track, the
      rest fresh audio; `match --windowed 10 --window-hop 5` through
      cli.do_match on phase 6's table (the file streams: K1f and K2); every
      excerpt named at rank 0 by a window inside it, <= 5% of the windows
      inside filler reporting a track, and do_match's device peak above
-     what was resident within the vote's budget (Matcher._budget_bytes)
+     what was resident within the vote's budget (Matcher._budget_bytes);
+     the windowed vote's key captured first (seconds, MiB held); then the
+     vote alone and the whole do_match, eager against replay in turns
+     over 5 rounds, rows and lines equal
  12. the `match --listen` loop (cli.do_listen over an os.pipe) on phase
      6's queries, after cli.do_warmup at --warm-durations 5,10 and
      --batchsize 16 on a matcher of its own (8 graphs captured: 2 buckets
@@ -100,7 +110,8 @@ Phases (any failure exits non-zero before the result line):
      with one missing path; lines equal batch do_match's, in order, the
      missing path reported, fewer do_match calls than backlog queries;
      then the 16 requests again, the eager function against the replays
-     in turns over 5 rounds (p50 and max of each)
+     in turns over 5 rounds (p50 and max of each), and as .afpt files
+     (the two-stage vote alone) likewise, lines equal
  13. a default-size wide table (2^20 x 100 int64, --idbits 20): phase 6's
      1,000 tracks stored on the card by DT.store_batch at sparse ids
      2^18 + 769 i equal the host HashTable bit for bit, and the 64
@@ -156,8 +167,21 @@ Phases (any failure exits non-zero before the result line):
      int16 query's host dispatch and device events (torch.profiler) and
      the 64-query fused match rate, eager against replay in turns over 5
      rounds
+ 18. the two-stage path's CUDA graphs (the Analyzer's fingerprint, the
+     Matcher's vote; phase_two_stage), right after phase 17, on config
+     2's 64 queries: the eager functions raise no host sync (the vote
+     sorted and hist, with and without the time range); every key
+     captured, then a counted run of replays alone at sub-batch sizes 1
+     and 16, float32 and int16 (K1, K2 and K3 once a fingerprint replay,
+     in the counts and in the profiler's kernel events of one replay of
+     each key); each replayed output equal to the eager function's bit
+     for bit, the hashes to the main path's and the rows to the oracle's
+     (sorted and hist); MiB held per key beside
+     pipeline.fingerprint_bytes; a 1 x 10 s query's fingerprint and vote
+     dispatch and device events and the 64-query two-stage rate, eager
+     against replay in turns over 5 rounds
 
-Each path of phases 6-8, 10-13 and 15-17 runs with the kernels' launch
+Each path of phases 6-8, 10-13 and 15-18 runs with the kernels' launch
 counts set to 0 just before it and read just after; the kernel record
 lists them by path.  Every one of these paths fingerprints, so each must
 launch K3.
@@ -1200,6 +1224,8 @@ def stage_breakdown(torch, batch: np.ndarray, lens: np.ndarray) -> dict:
 
 def phase_main_path(torch, rec: dict) -> dict:
     from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.ops import pipeline as pipe
+    from audfprint_torch.utils import graphs
     from audfprint_torch.oracle import analyze as oa
     from audfprint_torch.match.matcher import Matcher
     from audfprint_torch.models.analyzer import Analyzer
@@ -1218,8 +1244,17 @@ def phase_main_path(torch, rec: dict) -> dict:
     an = Analyzer(device="cuda")
     matcher = Matcher(device="cuda")
     # warm-up outside the measured run: cuFFT plans, the kernel library,
-    # the allocator; and the per-stage breakdown of one full batch
+    # the allocator, the ingest key's graph (captured into an empty pool,
+    # so that the bytes it holds are its own); and the per-stage
+    # breakdown of one full batch
+    graphs.clear(torch.device("cuda"))
     an.samples_batch2hashes(tracks[:256])
+    ((key, held),) = an._graphs.held_by_key().items()
+    print(f"config 2 ingest key {_key_name(key)} [{nvidia_smi_line()}]: "
+          f"captured in {an._graphs.capture_seconds()[key]:.3f} s, its "
+          f"graph holds {held / 2**20:.1f} MiB "
+          f"(pipeline.fingerprint_bytes estimates "
+          f"{pipe.fingerprint_bytes(*key[0][0][0], an.config) / 2**20:.1f})")
     idxs, batch, lens = an.stage_groups(tracks[:256])[0]
     breakdown = stage_breakdown(torch, batch, lens)
     print("fingerprint stages, device ms per (256 x 30 s) batch: "
@@ -1361,9 +1396,10 @@ def phase_vote_rows(torch, ctx, dev) -> dict:
 
 
 @contextlib.contextmanager
-def eager_fused():
-    """Inside, the fused path runs its eager function, as on a CPU device:
-    a measurement aid of this script; the port itself has no way to turn
+def eager_graphs():
+    """Inside, every graph cache (the fused path's, the two-stage vote's
+    and fingerprint's) runs its eager function, as on a CPU device: a
+    measurement aid of this script; the port itself has no way to turn
     its graphs off."""
     from audfprint_torch.utils import graphs
 
@@ -1523,18 +1559,9 @@ def phase_graphs(torch, rec: dict, ctx, dev) -> dict:
     def eager1():
         return eager(b1, l1)
 
-    disp = {"eager": [], "replay": []}
-    for _r in range(5):
-        for name, fn in (("eager", eager1), ("replay", replay1)):
-            for _c in range(10):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                disp[name].append(1e3 * (time.perf_counter() - t0))
-    torch.cuda.synchronize()
+    med = _in_turns(torch, {"eager": eager1, "replay": replay1})
     ev = {name: _cuda_events(torch, fn)
           for name, fn in (("eager", eager1), ("replay", replay1))}
-    med = {k: float(np.median(v)) for k, v in disp.items()}
     print(f"graphs [{smi}]: a 1 x 10 s int16 query, host dispatch ms "
           f"(median of 50 calls in 5 rounds, eager / replay) "
           f"{med['eager']:.3f} / {med['replay']:.3f}; device events "
@@ -1547,7 +1574,7 @@ def phase_graphs(torch, rec: dict, ctx, dev) -> dict:
     rate = {"eager": [], "replay": []}
     for _r in range(5):
         for name in ("eager", "replay"):
-            with (eager_fused() if name == "eager"
+            with (eager_graphs() if name == "eager"
                   else contextlib.nullcontext()):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1566,7 +1593,7 @@ def phase_graphs(torch, rec: dict, ctx, dev) -> dict:
             mc = M.Matcher(device=dev, verbose=0)
             mc._device_state(ht)
             torch.cuda.synchronize()
-            with (eager_fused() if name == "eager"
+            with (eager_graphs() if name == "eager"
                   else contextlib.nullcontext()):
                 t0 = time.perf_counter()
                 mc.match_samples_fused(an, ht, queries[:1])
@@ -1583,6 +1610,250 @@ def phase_graphs(torch, rec: dict, ctx, dev) -> dict:
             "query_device_events": {k: v[0] for k, v in ev.items()},
             "query_device_busy_ms": {k: v[1] for k, v in ev.items()},
             "fused_match_q_per_s": rate, "first_call_ms": cold}
+
+
+def padded_queries(hash_lists: list, Q: int) -> tuple:
+    """(t, hash, valid) (B, Q) host columns of query hash lists, as
+    Matcher._match_padded pads them."""
+    B = len(hash_lists)
+    tt, hh = np.zeros((B, Q), np.int32), np.zeros((B, Q), np.int32)
+    vv = np.zeros((B, Q), bool)
+    for b, h in enumerate(hash_lists):
+        tt[b, : len(h)], hh[b, : len(h)] = h[:, 0], h[:, 1]
+        vv[b, : len(h)] = True
+    return tt, hh, vv
+
+
+def _in_turns(torch, fns: dict, rounds: int = 5, calls: int = 10) -> dict:
+    """Host ms of each fn() (after a sync, without one after it), the fns
+    in turns, `calls` calls a round over `rounds` rounds: {name: median}."""
+    ms = {name: [] for name in fns}
+    for _r in range(rounds):
+        for name, fn in fns.items():
+            for _c in range(calls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return {k: float(np.median(v)) for k, v in ms.items()}
+
+
+def phase_two_stage(torch, rec: dict, ctx, dev) -> dict:
+    """The two-stage path's CUDA graphs over config 2's 64 queries: the
+    Analyzer's fingerprint (fingerprint_batch_compact_k) and the Matcher's
+    vote (match_batch_packed, sorted and hist core).  The eager functions
+    raise no host sync; every key captured, then a counted run of replays
+    alone at sub-batch sizes 1 and 16, float32 and int16 (K1, K2 and K3
+    once a fingerprint replay, in the counts and in the profiler's kernel
+    events of one replay of each key); each replayed output equal to the
+    eager function's bit for bit, the hashes to the main path's and the
+    rows to the numpy oracle's; MiB each key holds; a 1 x 10 s query's
+    host dispatch and device events and the 64-query two-stage rate,
+    eager against replay in turns over 5 rounds."""
+    from audfprint_torch.match import matcher as M
+    from audfprint_torch.models.analyzer import Analyzer
+    from audfprint_torch.ops import pipeline as pipe
+    from audfprint_torch.utils import graphs
+
+    smi = nvidia_smi_line()
+    ht, queries, want = ctx["ht"], ctx["queries"], ctx["oracle_rows"]
+    sigs = {"float32": queries, "int16": [to_pcm(q) for q in queries]}
+    an = Analyzer(device=dev)
+    cfg = an.config
+    mats = {"sorted": M.Matcher(device=dev, verbose=0),
+            "hist": M.Matcher(device=dev, verbose=0)}
+    mats["hist"].force_core = "hist"
+
+    def fp_static(batch):
+        return (cfg, an._hash_cap_estimate(batch.shape[1] / an.target_sr))
+
+    def fp_eager(batch, lens):
+        return pipe.fingerprint_batch_compact_k(
+            torch.as_tensor(batch, device=dev),
+            torch.as_tensor(lens, device=dev), *fp_static(batch))
+
+    def vote_args(core, hash_lists):
+        m = mats[core]
+        table, counts, hpi, tcfg, ncap, _mesh, plane = m._device_state(ht)
+        Q = M._next_pow2(max([1] + [len(h) for h in hash_lists]), 128)
+        maxt = max([1] + [int(h[:, 0].max()) + 1 for h in hash_lists
+                          if len(h)])
+        mcfg = m._mcfg(M._next_pow2(maxt, M._QT_FLOOR), ncap)
+        return (padded_queries(hash_lists, Q),
+                (table, counts, hpi, plane if core == "sorted" else None),
+                (tcfg, mcfg, core))
+
+    def vote_eager(inputs, state, static):
+        return M._two_stage_vote(
+            *(torch.as_tensor(a, device=dev) for a in inputs), *state,
+            *static)
+
+    # the eager functions from device inputs: a host sync raises here
+    qh = ctx["qhashes"]
+    for kind, rows in [(k, r) for k in sigs for r in (1, 16)]:
+        _i, batch, lens = an.stage_groups(sigs[kind][:rows])[0]
+        xa = torch.as_tensor(batch, device=dev)
+        xl = torch.as_tensor(lens, device=dev)
+        checks = [lambda: pipe.fingerprint_batch_compact_k(
+            xa, xl, *fp_static(batch))]
+        for core in mats:
+            inputs, state, static = vote_args(core, qh[:rows])
+            dv = [torch.as_tensor(a, device=dev) for a in inputs]
+            checks.append(lambda dv=dv, state=state, static=static:
+                          M._two_stage_vote(*dv, *state, *static))
+            checks.append(lambda dv=dv, state=state, static=static:
+                          M._two_stage_vote(*dv, *state, static[0],
+                                            static[1]._replace(
+                                                find_time_range=True),
+                                            static[2]))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for fn in checks:
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("two-stage graphs: the eager fingerprint_batch_compact_k and "
+          "_two_stage_vote (sorted and hist core, with and without the "
+          "time range) ran without a host sync under "
+          "set_sync_debug_mode('error')")
+
+    def run():
+        """Every fingerprint key's groups, queued; every vote key's
+        sub-batches.  Returns (fingerprint handles, vote outputs)."""
+        fps = []
+        for kind in sigs:
+            for rows in (1, 16):
+                for i in range(0, len(queries), rows):
+                    chunk = sigs[kind][i: i + rows]
+                    fps.append((kind, chunk, an.fingerprint_async(chunk)))
+        votes = []
+        for core in mats:
+            for rows in (1, 16):
+                for i in range(0, len(qh), rows):
+                    args = vote_args(core, qh[i: i + rows])
+                    votes.append((core, args, mats[core]._votes(*args)))
+        return fps, votes
+
+    t0 = time.time()
+    run()                                       # capture every key
+    torch.cuda.synchronize()
+    t_cap = time.time() - t0
+    keys = {"fingerprint": an._graphs.keys(),
+            **{core: m._votes.keys() for core, m in mats.items()}}
+    # ---- replays alone, counted ----
+    caps = graphs.counts["captures"]
+    _counts_zero()
+    fps, votes = run()
+    torch.cuda.synchronize()
+    launches = _counts()
+    n_fp = sum(len(h[1]) for _k, _c, h in fps)
+    require(graphs.counts["captures"] == caps,
+            "a replayed two-stage key was captured again")
+    require(all(launches[k] == n_fp for k in GRAPH_KERNELS),
+            f"{n_fp} fingerprint replays counted as {launches}")
+    rec["_paths"]["two_stage_graphs"] = launches
+    for kind, rows in [(k, r) for k in sigs for r in (1, 16)]:
+        _j, batch, lens = an.stage_groups(sigs[kind][:rows])[0]
+        _n, _ms, seen = _cuda_events(
+            torch, lambda: an._graphs((batch, lens), (), fp_static(batch)))
+        require(all(seen[k] == 1 for k in GRAPH_KERNELS),
+                f"one fingerprint replay ({kind}, {rows} rows) ran the "
+                f"kernels {seen} times, not once each")
+    n_out = 0
+    hashes = {}
+    for kind, chunk, h in fps:
+        for (idxs, out), (_j, batch, lens) in zip(h[1],
+                                                  an.stage_groups(chunk)):
+            ref = fp_eager(batch, lens)
+            require(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                    f"replayed fingerprint differs from the eager "
+                    f"function: {kind}, {len(chunk)} rows, rows {idxs}")
+            n_out += 1
+        hashes.setdefault((kind, len(chunk)), []).extend(
+            an.fingerprint_resolve(h))
+    for (kind, _rows), hl in hashes.items():
+        if kind == "float32":
+            bad = [i for i, (a, b) in enumerate(zip(hl, qh))
+                   if not np.array_equal(a, b)]
+            require(not bad, f"replayed fingerprints differ from the main "
+                             f"path's hashes: queries {bad[:8]}")
+    for core, args, out in votes:
+        require(torch.equal(out, vote_eager(*args)),
+                f"replayed vote differs from the eager function ({core}, "
+                f"{args[0][0].shape[0]} rows)")
+        n_out += 1
+    n_rows = 0
+    for core, m in mats.items():
+        for rows in (1, 16):
+            got = []
+            for i in range(0, len(qh), rows):
+                got += m.match_hashes_batch(ht, qh[i: i + rows])
+            bad = _rows_differing(got, want)
+            require(not bad, f"two-stage replayed rows differ from the "
+                             f"oracle ({core}, sub-batch {rows}): queries "
+                             f"{bad[:8]}")
+            n_rows += sum(len(w) for w in want)
+    held = {"fingerprint " + _key_name(k): round(b / 2**20, 1)
+            for k, b in an._graphs.held_by_key().items()}
+    for core, m in mats.items():
+        held.update({f"vote {core} {k[0][0][0][0]}x{k[0][0][0][1]}":
+                     round(b / 2**20, 1)
+                     for k, b in m._votes.held_by_key().items()})
+    est = {_key_name(k): round(pipe.fingerprint_bytes(
+        k[0][0][0][0], k[0][0][0][1], cfg) / 2**20, 1)
+        for k in an._graphs.keys()}
+    print(f"two-stage graphs [{smi}]: {sum(len(v) for v in keys.values())} "
+          f"keys captured in {t_cap:.2f} s (fingerprint "
+          f"{len(keys['fingerprint'])}, vote sorted {len(keys['sorted'])}, "
+          f"hist {len(keys['hist'])}); {n_fp} fingerprint replays launched "
+          f"K1, K2 and K3 once each ({launches}); {n_out} replayed outputs "
+          f"equal the eager functions' bit for bit; {n_rows} rows equal the "
+          f"oracle's (sorted and hist, sub-batch sizes 1 and 16); MiB held "
+          f"by key {held}; fingerprint_bytes estimates MiB {est}")
+
+    # one 1 x 10 s int16 query: host dispatch and device events
+    _i, b1, l1 = an.stage_groups(sigs["int16"][:1])[0]
+    v1 = vote_args("sorted", qh[:1])
+    fns = {"fingerprint eager": lambda: fp_eager(b1, l1),
+           "fingerprint replay": lambda: an._graphs((b1, l1), (),
+                                                   fp_static(b1)),
+           "vote eager": lambda: vote_eager(*v1),
+           "vote replay": lambda: mats["sorted"]._votes(*v1)}
+    disp = _in_turns(torch, fns)
+    ev = {name: _cuda_events(torch, fn) for name, fn in fns.items()}
+    print(f"two-stage graphs [{smi}]: a 1 x 10 s int16 query, host dispatch "
+          f"ms (median of 50 calls in 5 rounds) "
+          f"{ {k: round(v, 3) for k, v in disp.items()} }; device events "
+          f"{ {k: v[0] for k, v in ev.items()} }, device busy ms "
+          f"{ {k: round(v[1], 3) for k, v in ev.items()} }")
+
+    # the 64-query two-stage match (fingerprint, resolve, vote), eager
+    # against replay in turns, its keys captured first
+    m = mats["sorted"]
+    m.match_hashes_batch(ht, an.samples_batch2hashes(sigs["int16"]))
+    rate = {"eager": [], "replay": []}
+    for _r in range(5):
+        for name in rate:
+            with (eager_graphs() if name == "eager"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = m.match_hashes_batch(ht, an.samples_batch2hashes(
+                    sigs["int16"]))
+                rate[name].append(len(queries) / (time.perf_counter() - t0))
+            require(len(got) == len(queries), "two-stage rate: rows lost")
+    print(f"two-stage graphs [{smi}]: 64 x 10 s int16 queries through "
+          f"samples_batch2hashes + match_hashes_batch, q/s by round, eager "
+          f"{[round(x, 2) for x in rate['eager']]}, replay "
+          f"{[round(x, 2) for x in rate['replay']]}")
+    return {"two_stage_keys": {k: len(v) for k, v in keys.items()},
+            "two_stage_capture_s": t_cap, "two_stage_fp_replays": n_fp,
+            "two_stage_held_mib": held, "two_stage_dispatch_ms": disp,
+            "two_stage_device_events": {k: v[0] for k, v in ev.items()},
+            "two_stage_q_per_s": rate}
 
 
 def _timed(torch, dev, fn, warm: bool = True):
@@ -1962,7 +2233,7 @@ def _counts() -> dict:
     return {k: v for d in _launch_counters() for k, v in d.items()}
 
 
-# `python -m audfprint_torch` inside eager_fused(), so that a process's
+# `python -m audfprint_torch` inside eager_graphs(), so that a process's
 # eager cost can be timed beside its graphs' (oneshot_match)
 _EAGER_MAIN = ("import runpy; from audfprint_torch.utils import graphs; "
                "graphs.captures = lambda device: False; "
@@ -2246,9 +2517,10 @@ def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
     _sync(torch, dev)
     # ---- config 3 with the sweep, counted ----
     _counts_zero()
-    curve = {}
+    curve, conds = {}, {}
     for name, kw in CONFIG3_CONDITIONS:
         queries = [_degrade(c, rng, **kw) for c in clean]
+        conds[name] = queries
         truths = list(range(nq))
         t0 = time.time()
         qh = an4.samples_batch2hashes(queries)
@@ -2301,7 +2573,47 @@ def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
             and launches["pair_scan"] > 0,
             f"a kernel was not launched on the config 3 path: {launches}")
     rec["_paths"]["config3_sweep"] = launches
-    return {"config3_curve": curve}
+
+    # the same queries, eager against the replayed graphs in turns: plain
+    # (every condition) and swept (the speed conditions); rows equal
+    def plain():
+        return [matcher.match_hashes_batch(ht, an4.samples_batch2hashes(q))
+                for q in conds.values()]
+
+    def swept():
+        out = []
+        for name, q in conds.items():
+            if "speed" in name:
+                for c in range(0, nq, chunk):
+                    out.append(matcher.match_samples_sweep(
+                        an4, ht, q[c: c + chunk], 4.0))
+        return out
+
+    ab = {(path, mode): [] for path in ("plain", "swept")
+          for mode in ("eager", "replay")}
+    n_q = {"plain": nq * len(conds),
+           "swept": nq * sum("speed" in n for n in conds)}
+    first: dict = {}
+    for _r in range(5):
+        for path, fn in (("plain", plain), ("swept", swept)):
+            for mode in ("eager", "replay"):
+                with (eager_graphs() if mode == "eager"
+                      else contextlib.nullcontext()):
+                    t0 = time.time()
+                    out = fn()
+                    ab[path, mode].append(n_q[path] / (time.time() - t0))
+                flat = [np.asarray(r[0] if isinstance(r, tuple) else r)
+                        for batch in out for r in batch]
+                ref = first.setdefault(path, flat)
+                require(len(flat) == len(ref) and not _rows_differing(
+                    flat, ref), f"config 3 {path}: {mode} rows differ")
+    print(f"config 3 [{nvidia_smi_line()}]: eager against replayed graphs "
+          f"in turns, q/s by round (fingerprint included): "
+          + "; ".join(f"{p} {m} {[round(x, 1) for x in v]}"
+                      for (p, m), v in ab.items())
+          + "; rows equal in every round")
+    return {"config3_curve": curve,
+            "config3_q_per_s": {f"{p} {m}": v for (p, m), v in ab.items()}}
 
 
 def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
@@ -2315,6 +2627,7 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
     from audfprint_torch.utils.timing import Stages
     from audfprint_torch import cli
     from audfprint_torch.match.matcher import slice_hash_windows
+    from audfprint_torch.utils import graphs
 
     tracks, ht, matcher = ctx["tracks"], ctx["ht"], ctx["matcher"]
     rng = np.random.default_rng(SEED + 6)
@@ -2356,6 +2669,22 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
     peak_stream = _peak_mib(torch, dev, base)
     dur = an.soundfiledur
     wins = slice_hash_windows(h, dur, win, SR / 256.0, hop)
+    # the windowed vote's key captured outside the counted run, into an
+    # empty pool: its capture seconds and the bytes its graph holds
+    wh = [w[1] for w in wins]
+    graphs.clear(torch.device(dev))
+    t0 = time.time()
+    matcher.match_hashes_batch(ht, wh)
+    _sync(torch, dev)
+    t_cap = time.time() - t0
+    vkey = [k for k in matcher._votes.keys()
+            if k[0][0][0][1] == P.next_pow2(max(len(x) for x in wh), 128)]
+    held = {f"{k[0][0][0][0]}x{k[0][0][0][1]}": round(b / 2**20, 1)
+            for k, b in matcher._votes.held_by_key().items() if k in vkey}
+    print(f"broadcast [{nvidia_smi_line()}]: the windowed vote's first call "
+          f"(warm-up run, capture and replay of its key) {t_cap:.3f} s; "
+          f"captured into an empty pool, its graph holds MiB {held}; budget "
+          f"clears so far {graphs.counts['budget_clears']}")
     lines: list = []
     # ---- the windowed CLI path, counted ----
     _counts_zero()
@@ -2432,6 +2761,35 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
           f"({sum(len(w) > 0 for w in want_rows)} of them report a track)")
     require(not bad, f"windowed rows differ from the oracle: sample {bad[:8]}")
     rec["_paths"]["broadcast_windowed"] = launches
+
+    # the windowed vote alone, and the whole do_match, eager against the
+    # replayed graphs in turns over 5 rounds; rows and lines equal
+    ref = matcher.match_hashes_batch(ht, wh)
+    vote_s = {"eager": [], "replay": []}
+    wps = {"eager": [], "replay": []}
+    for _r in range(5):
+        for mode in vote_s:
+            with (eager_graphs() if mode == "eager"
+                  else contextlib.nullcontext()):
+                t0 = time.time()
+                got = matcher.match_hashes_batch(ht, wh)
+                vote_s[mode].append(time.time() - t0)
+                require(not _rows_differing(got, ref),
+                        f"broadcast: the {mode} windowed vote's rows differ")
+                again: list = []
+                t0 = time.time()
+                cli.do_match(ht, an, matcher, [wav], args, again.append,
+                             Stages())
+                _sync(torch, dev)
+                wps[mode].append(len(wins) / (time.time() - t0))
+                require(again == lines, f"broadcast: {mode} do_match lines "
+                                        "differ from the counted run's")
+    print(f"broadcast [{nvidia_smi_line()}]: eager against replayed graphs "
+          f"in turns: the {len(wins)}-window vote s by round, eager "
+          f"{[round(x, 4) for x in vote_s['eager']]}, replay "
+          f"{[round(x, 4) for x in vote_s['replay']]}; do_match windows/s, "
+          f"eager {[round(x, 1) for x in wps['eager']]}, replay "
+          f"{[round(x, 1) for x in wps['replay']]}")
     return {"broadcast_windows": len(wins), "broadcast_wall_s": wall,
             "broadcast_rows_vs_oracle": len(sample),
             "broadcast_windows_per_s": len(wins) / wall,
@@ -2439,7 +2797,9 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
             "broadcast_stream_peak_mib": peak_stream,
             "broadcast_do_match_peak_mib": peak_all,
             "broadcast_vote_sub_batch": bsub,
-            "broadcast_vote_budget_mib": budget / 2**20}
+            "broadcast_vote_budget_mib": budget / 2**20,
+            "broadcast_vote_held_mib": held,
+            "broadcast_vote_s": vote_s, "broadcast_ab_windows_per_s": wps}
 
 
 def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
@@ -2541,7 +2901,7 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
     rounds = {"eager": [], "replay": []}
     for _r in range(5):
         for name in ("eager", "replay"):
-            with (eager_fused() if name == "eager"
+            with (eager_graphs() if name == "eager"
                   else contextlib.nullcontext()):
                 ms = sorted(_listen_session(cli, ht, an, matcher, args,
                                             inter)["lat_ms"])
@@ -2550,9 +2910,37 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
           f"{[(round(a, 2), round(b, 2)) for a, b in rounds['eager']]}, "
           f"replay {[(round(a, 2), round(b, 2)) for a, b in rounds['replay']]}")
 
+    # precomputed .afpt requests (the two-stage vote alone), eager against
+    # the replayed graphs in turns over 5 rounds after an untimed replayed
+    # session captures their keys; lines equal in every session
+    from audfprint_torch.utils import formats
+
+    afpt = []
+    for p, h in zip(inter, ctx["qhashes"]):
+        afpt.append(p[:-4] + ".afpt")
+        formats.hashes_save(afpt[-1], h)
+    ref = _listen_session(cli, ht, an, matcher, args, afpt)["lines"]
+    afpt_rounds = {"eager": [], "replay": []}
+    for _r in range(5):
+        for name in afpt_rounds:
+            with (eager_graphs() if name == "eager"
+                  else contextlib.nullcontext()):
+                sess = _listen_session(cli, ht, an, matcher, args, afpt)
+            require(sess["lines"] == ref,
+                    f"listen .afpt lines differ ({name})")
+            ms = sorted(sess["lat_ms"])
+            afpt_rounds[name].append((ms[len(ms) // 2], ms[-1]))
+    print(f"listen [{nvidia_smi_line()}]: {len(afpt)} .afpt requests, p50 / "
+          f"max ms by round, eager "
+          f"{[(round(a, 2), round(b, 2)) for a, b in afpt_rounds['eager']]}, "
+          f"replay "
+          f"{[(round(a, 2), round(b, 2)) for a, b in afpt_rounds['replay']]}"
+          f"; lines equal in every round")
+
     streamed_beside_capture(ht, dev, d, inter[:2], ctx["tracks"][5],
                             "track5")
     return {"listen_p50_ms": p50, "listen_max_ms": lat_ms[-1],
+            "listen_afpt_rounds_p50_max_ms": afpt_rounds,
             "listen_rounds_p50_max_ms": rounds,
             "listen_backlog_q_per_s": bq_s,
             "listen_backlog_calls": len(backlog_calls)}
@@ -2580,7 +2968,7 @@ def streamed_beside_capture(ht, dev, d, queries, track, name) -> None:
     for mode in ("graphs", "eager"):
         m = Matcher(device=dev)
         lines[mode] = []
-        with (eager_fused() if mode == "eager"
+        with (eager_graphs() if mode == "eager"
               else contextlib.nullcontext()):
             cli.do_match(ht, an, m, mixed, args, lines[mode].append,
                          Stages())
@@ -2604,7 +2992,8 @@ def streamed_beside_capture(ht, dev, d, queries, track, name) -> None:
 def _listen_session(cli, ht, an, matcher, args, inter,
                     backlog=()) -> dict:
     """cli.do_listen over an os.pipe: each path of `inter` written after
-    the previous one's result line, then `backlog` written at once.
+    the previous one's result line, the first once the loop reads its
+    stream (after its warm-up), then `backlog` written at once.
     Returns lat_ms (write -> result line, per interactive path), lines
     (everything reported), backlog_calls (paths per do_match call after
     the interactive ones), t_backlog and t_end (perf_counter when the
@@ -2626,6 +3015,15 @@ def _listen_session(cli, ht, an, matcher, args, inter,
 
     rfd, wfd = os.pipe()
     reader, writer = os.fdopen(rfd, "r"), os.fdopen(wfd, "w")
+    reading = threading.Event()
+
+    class Stream:
+        """The read end, which says when the loop starts reading it."""
+
+        def __iter__(self):
+            reading.set()
+            return iter(reader)
+
     calls: list = []
     real = cli.do_match
 
@@ -2639,6 +3037,8 @@ def _listen_session(cli, ht, an, matcher, args, inter,
 
     def feeder():
         try:
+            if not reading.wait(120):
+                raise RuntimeError("the loop never read its stream")
             for p in inter:
                 with cond:
                     n0 = n_results()
@@ -2663,7 +3063,7 @@ def _listen_session(cli, ht, an, matcher, args, inter,
         th = threading.Thread(target=feeder, daemon=True)
         th.start()
         n_served, _dur = cli.do_listen(ht, an, matcher, args, report,
-                                       Stages(), None, stream=reader)
+                                       Stages(), None, stream=Stream())
         t_end = time.perf_counter()
         th.join(timeout=60)
     finally:
@@ -2855,6 +3255,7 @@ def phase_cli() -> dict:
             serving = phase_cli_serving(d, db, wavs, songs, query, q, rank0)
             serving.update(ndev.result())
         serving.update(oneshot_match(d, db, query, rank0))
+        serving.update(listen_processes(d, db, songs))
     with tempfile.TemporaryDirectory() as d:
         got = golden_session(d, lambda argv: main(argv, device="cuda"))
     with open(os.path.join(ROOT, "tests", "golden", "cli_session.txt")) as f:
@@ -2870,7 +3271,155 @@ def phase_cli() -> dict:
             same_db, **serving}
 
 
-def oneshot_match(d, db, query, rank0, rounds: int = 3) -> dict:
+# `python -m audfprint_torch` with the listen loop's warm-up left out: a
+# listen process that captures each key on its first request, as before
+# match --listen warmed itself (listen_processes' "first-capture" mode)
+_NOWARM_MAIN = ("import runpy; from audfprint_torch import cli; "
+                "cli.warm_serving = lambda *a, **k: 0; "
+                "runpy.run_module('audfprint_torch', run_name='__main__', "
+                "alter_sys=True)")
+
+
+def _listen_process(db, reqs, missing, mj, mode, timeout=300) -> dict:
+    """One `match --listen -d db --json-metrics mj` process over a pipe.
+    The missing path goes first: its error line says the loop has read
+    its first line (the warm-up is behind it) without any device work.
+    Then each request is written after the previous one's result line.
+    mode: "graphs" (the CLI as it is), "eager" (graphs off, _EAGER_MAIN)
+    or "first-capture" (_NOWARM_MAIN).  Returns lat_ms per request, the
+    result lines, the process's wall to its first line and its
+    --json-metrics."""
+    import queue
+    import threading
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    main = {"graphs": ["-m", "audfprint_torch"],
+            "eager": ["-c", _EAGER_MAIN],
+            "first-capture": ["-c", _NOWARM_MAIN]}[mode]
+    t_start = time.perf_counter()
+    err = open(mj + ".stderr", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, *main, "match", "-d", db, "--listen",
+         "--json-metrics", mj], cwd=ROOT, env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=err, text=True, bufsize=1)
+
+    def errors() -> str:
+        err.seek(0)
+        return err.read()[-2000:]
+    out: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            out.put((time.perf_counter(), line.rstrip("\n")))
+        out.put((time.perf_counter(), None))
+
+    threading.Thread(target=pump, daemon=True).start()
+
+    def answer(prefixes):
+        while True:
+            t, line = out.get(timeout=timeout)
+            require(line is not None,
+                    f"listen process ({mode}) ended: {errors()}")
+            if line.startswith(prefixes):
+                return t, line
+
+    lat, lines = [], []
+    try:
+        proc.stdin.write(missing + "\n")
+        proc.stdin.flush()
+        t_ready, _ = answer(("Error reading",))
+        for p in reqs:
+            t0 = time.perf_counter()
+            proc.stdin.write(p + "\n")
+            proc.stdin.flush()
+            t1, line = answer(("Matched", "NOMATCH"))
+            lat.append(1e3 * (t1 - t0))
+            lines.append(line)
+        proc.stdin.close()
+        require(proc.wait(timeout=timeout) == 0,
+                f"listen process ({mode}) exited {proc.returncode}: "
+                f"{errors()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+    with open(mj) as f:
+        metrics = json.load(f)
+    return {"lat_ms": lat, "lines": lines, "ready_s": t_ready - t_start,
+            "metrics": metrics}
+
+
+def listen_processes(d, db, songs, rounds: int = 5) -> dict:
+    """`warmup -d db`, then fresh `match --listen -d db` processes over a
+    pipe, as a user runs them: 16 requests, 5 s and 10 s excerpts of the
+    songs in turn (the warm buckets, int16 PCM, one row each).  Gates:
+    each listen process captured nothing after it read its first line
+    (its --json-metrics listen_graph_captures), and its result lines equal
+    batch do_match's over the same paths.  Times each key's first request
+    and the p50 and max of the 16, the CLI as it is ("graphs") in turns
+    with each key captured on its first request ("first-capture") over
+    `rounds` rounds, and with the graphs off ("eager") in the first."""
+    from audfprint_torch import cli
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.utils.audio import audio_write_wav
+    from audfprint_torch.utils.timing import Stages
+
+    smi = nvidia_smi_line()
+    reqs = []
+    for i in range(16):
+        n = int((5.0 if i % 2 == 0 else 10.0) * SR)
+        o = 256 * (23 * i % 40)
+        reqs.append(os.path.join(d, f"listen_proc{i:02d}.wav"))
+        audio_write_wav(reqs[-1], songs[i % 3][o: o + n], SR)
+    missing = os.path.join(d, "listen_proc_missing.wav")
+    t0 = time.time()
+    out = _cli(["warmup", "-d", db])
+    t_warm = time.time() - t0
+    require("warmed 10 s bucket" in out, f"warmup: {out}")
+    args = cli.make_parser().parse_intermixed_args(["match", "-d", db])
+    batch: list = []
+    cli.do_match(HashTable(db), cli.setup_analyzer(args, "cuda"),
+                 cli.setup_matcher(args, "cuda"), reqs, args, batch.append,
+                 Stages())
+    batch = [ln for ln in batch if ln.startswith(("Matched", "NOMATCH"))]
+    res = {mode: [] for mode in ("graphs", "first-capture", "eager")}
+    for r in range(rounds):
+        for mode in list(res)[: 3 if r == 0 else 2]:
+            mj = os.path.join(d, f"listen_proc_{mode}{r}.json")
+            sess = _listen_process(db, reqs, missing, mj, mode)
+            caps = sess["metrics"].get("listen_graph_captures")
+            require(sess["lines"] == batch,
+                    f"listen process ({mode}): lines differ from batch "
+                    f"mode: {sess['lines'][:2]} / {batch[:2]}")
+            if mode == "graphs":
+                require(caps["serving"] == 0 and caps["warm"] > 0,
+                        f"the listen process captured after its first "
+                        f"line: {caps}")
+            lat = sess["lat_ms"]
+            res[mode].append({
+                "first_5s_ms": round(lat[0], 3),
+                "first_10s_ms": round(lat[1], 3),
+                "p50_ms": round(float(np.median(lat)), 3),
+                "max_ms": round(max(lat), 3),
+                "ready_s": round(sess["ready_s"], 3),
+                "warm_s": round(sess["metrics"]["stage_seconds"].get(
+                    "warm", 0.0), 3),
+                "captures": caps})
+    print(f"listen processes [{smi}]: `warmup -d db` ({t_warm:.1f} s of "
+          f"wall), then fresh `match --listen -d db` processes, 16 requests "
+          f"(5 s / 10 s in turn), lines equal batch mode; by round:")
+    for mode, rows in res.items():
+        print(f"  {mode}: " + "; ".join(
+            f"first 5 s {x['first_5s_ms']} ms, first 10 s "
+            f"{x['first_10s_ms']} ms, p50 {x['p50_ms']}, max {x['max_ms']}, "
+            f"ready after {x['ready_s']} s (warm-up {x['warm_s']} s), "
+            f"captures {x['captures']}" for x in rows))
+    return {"listen_processes": res, "listen_processes_warmup_s": t_warm}
+
+
+def oneshot_match(d, db, query, rank0, rounds: int = 2) -> dict:
     """A one-shot `match -d db query` process, what a user who matches
     one file pays: its one key's first call warms, captures and replays
     a graph, where the eager function ran once before the graphs.  The
@@ -3544,6 +4093,8 @@ def main() -> int:
         summary.update(main_summary)
         summary.update(timed("vote_rows", phase_vote_rows, torch, ctx, dev))
         summary.update(timed("graphs", phase_graphs, torch, rec, ctx, dev))
+        summary.update(timed("two_stage", phase_two_stage, torch, rec, ctx,
+                             dev))
         summary.update(timed("device_store", phase_device_store, torch, rec,
                              ctx["tracks"], ctx["ht"], t_two_stage, dev))
         summary.update(timed("sharded", phase_sharded, torch, rec, ctx, dev))

@@ -43,10 +43,15 @@ SR = 11025
 COUNTERS = pipe.launch_counters()
 
 
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
 class RecordingGraph:
     """A CPU stand-in for torch.cuda.CUDAGraph (see the module docstring).
-    A replay leaves the launch counters as they were: a real replay runs
-    no Python, and the cache adds the launches recorded at capture."""
+    A replay writes every static output in place (one tensor or a tuple
+    of them) and leaves the launch counters as they were: a real replay
+    runs no Python, and the cache adds the launches recorded at capture."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -55,7 +60,8 @@ class RecordingGraph:
 
     def replay(self):
         before = [dict(d) for d in COUNTERS]
-        self.out.copy_(self.fn())
+        for static, new in zip(_outputs(self.out), _outputs(self.fn())):
+            static.copy_(new)
         for d, b in zip(COUNTERS, before):
             d.update(b)
         self.replays += 1
@@ -331,18 +337,31 @@ def test_failed_capture_raises(db, monkeypatch):
     assert m._graphs.keys() == []
 
 
-def test_budget_counts_the_cache(db, recorded):
-    """What the cache holds counts against the fused path's budget: past
-    it a new key takes the two-stage path (None), while a captured key
-    still replays."""
+def test_budget_counts_the_cache(db, recorded, monkeypatch):
+    """What the caches on the device hold counts against the fused path's
+    budget (graphs.make_room): a captured key replays with nothing to
+    fit; a new key that would not fit beside what they hold clears them
+    all (counted) and is captured; keys past the budget on their own
+    take the two-stage path (None)."""
     m = M.Matcher(device="cpu", verbose=0)
     an, ht, qs = db["an"], db["ht"], db["qs"]
     m.match_samples_fused(an, ht, qs[:1])
+    first = m._graphs.keys()
     m.mem_budget_bytes = 1 << 30
-    m._graphs.held_bytes = m.mem_budget_bytes
-    assert m.match_samples_fused(an, ht, qs[:2]) is None
+    monkeypatch.setattr(graphs._shared(m.device), "pool_bytes",
+                        m.mem_budget_bytes)
+    clears = graphs.counts["budget_clears"]
     assert m.match_samples_fused(an, ht, qs[1:2]) is not None
-    assert len(m._graphs.keys()) == 1
+    assert graphs.counts["budget_clears"] == clears
+    assert m._graphs.keys() == first
+    res, _ = m.match_samples_fused(an, ht, qs[:2])
+    assert graphs.counts["budget_clears"] == clears + 1
+    assert len(m._graphs.keys()) == 1 and m._graphs.keys() != first
+    assert [int(r[0][0]) for r in res] == [0, 1]
+    _t, _c, _h, tcfg, _n, _mesh, _p = m._device_state(ht)
+    m.mem_budget_bytes = m._sorted_bytes_per_row(tcfg, 128) * 2 - 1
+    m.fused_qcap = 128
+    assert m.match_samples_fused(an, ht, qs[:2]) is None
 
 
 def test_gauss_vector_upload_made_once():
