@@ -219,14 +219,24 @@ def store_packed_local(table: torch.Tensor, counts: torch.Tensor,
 
     Stable sort by bucket -> rank within the bucket -> insertion position
     counts[bucket] + rank -> the deterministic reservoir slot past the
-    depth -> last write wins per (bucket, slot) -> one scatter of the
-    surviving rows, whose (bucket, slot) pairs are unique."""
+    depth -> last write wins per (bucket, slot) -> one scatter of every
+    row, whose writing rows' (bucket, slot) pairs are unique.
+
+    Every size is fixed by the input's, and nothing is read back to the
+    host, so a CUDA graph can capture the store (the JAX package's
+    `.at[...].set(mode="drop")` under jit).  A row that does not write
+    repeats the write of the last row that does, value and place: the
+    table cannot carry a spare slot, and a repeated write of one value
+    leaves the same table whichever lands last.  With no writing row at
+    all, each row writes back the value its (clamped) place holds."""
     n_local, depth = table.shape
     dev = table.device
+    n = hashes.shape[0]
+    if n == 0:
+        return
     h = (hashes.to(device=dev, dtype=torch.int64)
          & ((1 << cfg.hashbits) - 1)) - bucket_lo
     v = valid.to(dev) & (h >= 0) & (h < n_local)
-    n = h.shape[0]
     # invalid rows sort last, into a sentinel bucket that is never written
     hkey = torch.where(v, h, n_local)
     hs, order = torch.sort(hkey, stable=True)
@@ -253,10 +263,22 @@ def store_packed_local(table: torch.Tensor, counts: torch.Tensor,
     last[:-1] = key2[1:] != key2[:-1]
     hs2, sk2 = hs[perm], skey[perm]
     do = last & (sk2 < depth) & (hs2 < n_local)
-    es2 = es[perm][do]
-    table[hs2[do], sk2[do]] = es2 if cfg.wide else _as_int32(es2)
-    counts += torch.bincount(hkey, minlength=n_local + 1)[:n_local].to(
-        counts.dtype)
+    es2 = es[perm]
+    es2 = es2 if cfg.wide else _as_int32(es2)
+    w = torch.clamp(torch.where(do, idx, -1).amax(dim=0, keepdim=True),
+                    min=0)                        # (1,): the last writer
+    rows = torch.where(do, hs2, torch.clamp(hs2[w], max=n_local - 1))
+    cols = torch.where(do, sk2, torch.clamp(sk2[w], max=depth - 1))
+    table[rows, cols] = torch.where(
+        do, es2, torch.where(do[w], es2[w], table[rows, cols]))
+    counts.index_add_(0, torch.clamp(hkey, max=n_local - 1),
+                      v.to(counts.dtype))
+
+
+def store_bytes(n: int) -> int:
+    """An estimate of the device bytes store_packed_local keeps live for
+    n rows: about a dozen int64 arrays of n."""
+    return 96 * n
 
 
 def _as_int32(x: torch.Tensor) -> torch.Tensor:

@@ -4,11 +4,12 @@ Mirrors the reference class surface (wavfile2hashes / wavfile2peaks /
 ingest) plus the batched entry points.  All DSP runs through
 ops.pipeline on `device`; decode stays on the host.  Audio lengths are
 padded into geometric buckets so batches share a few shapes.  On one
-CUDA device the batched fingerprint (fingerprint_batch_compact_k, the
-JAX package's jitted function of that name) is captured as a CUDA graph
-per shape key and replayed (utils/graphs.GraphCache).  WAVs longer than
+CUDA device the batched fingerprint (fingerprint_batch_compact_k) and
+the batched peaks of `precompute -K` (peaks_batch), the JAX package's
+jitted functions of those names, are captured as CUDA graphs per shape
+key and replayed (utils/graphs.GraphCache).  WAVs longer than
 `stream_above_sec` take the chunked streamed route (models/streaming.py)
-with O(chunk) host and device memory.
+with O(chunk) host and device memory, whose passes replay graphs too.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
 
 from audfprint_torch import params as P
 from audfprint_torch.ops.config import PipelineConfig
@@ -73,6 +73,9 @@ class Analyzer:
         # the batched fingerprint's captured graphs, one per shape key
         self._graphs = graphs.GraphCache(pipe.fingerprint_batch_compact_k,
                                          self.device, pipe.launch_counters())
+        # and the batched peaks' (precompute -K)
+        self._peaks = graphs.GraphCache(pipe.peaks_batch, self.device,
+                                        pipe.launch_counters())
 
     # -- config ---------------------------------------------------------
 
@@ -139,13 +142,15 @@ class Analyzer:
     def samples_batch2peaks(self, signals: list) -> list:
         """Batched peak extraction (the `precompute -K` path): list of
         sample arrays -> list of sorted unique (frame, bin) peak tuples per
-        file, the union across shifts."""
+        file, the union across shifts.  Each group replays the captured
+        graph of its key (rows, bucket length, int16 or float32, config),
+        its inputs staged through pinned memory."""
         out: list = [None] * len(signals)
         cfg = self.config
         for idxs, batch, lens in self.stage_groups(signals):
-            bins, valid = pipe.peaks_batch(
-                torch.as_tensor(batch, device=self.device),
-                torch.as_tensor(lens, device=self.device), cfg)
+            bins, valid = self._peaks.budgeted(
+                (batch, lens), (), (cfg,),
+                pipe.fingerprint_bytes(*batch.shape, cfg))
             bins = bins.cpu().numpy()
             valid = valid.cpu().numpy()
             for row, i in enumerate(idxs):

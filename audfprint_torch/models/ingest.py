@@ -8,7 +8,10 @@ per-file unique counts (for names, hashesperid and the report lines), and
 mirror.
 
   one device : fingerprint_batch -> store_batch_local
-               (fused_ingest_graph).
+               (fused_ingest_graph), and the store of host hashes
+               (store_batch), each replayed as a captured CUDA graph per
+               shape key on a CUDA device (utils/graphs.GraphCache), as
+               the JAX package jits them with the table donated.
   a mesh     : each shard fingerprints its block of the chunk's batch,
                packs the entries, and routes every (hash, entry) pair to
                the shard that owns its bucket with one all_to_all, under a
@@ -36,6 +39,7 @@ from audfprint_torch.ops.config import PipelineConfig
 from audfprint_torch.index import device_table as DT
 from audfprint_torch.models.analyzer import _bucket_len
 from audfprint_torch.ops import pipeline as pipe
+from audfprint_torch.utils import graphs
 
 
 def fused_ingest_graph(table: torch.Tensor, counts: torch.Tensor,
@@ -48,6 +52,29 @@ def fused_ingest_graph(table: torch.Tensor, counts: torch.Tensor,
     t, h, uniq, cnt = pipe.fingerprint_batch(audio, lengths, pcfg)
     DT.store_batch_local(table, counts, t, h, uniq, ids, tcfg, 0)
     return table, counts, cnt
+
+
+def _ingest_step(audio, lengths, ids, table, counts, pcfg: PipelineConfig,
+                 tcfg: DT.TableConfig) -> torch.Tensor:
+    """fused_ingest_graph as its graph cache calls it (inputs, then the
+    state it updates, then the static key) -> the per-file unique counts."""
+    return fused_ingest_graph(table, counts, audio, lengths, ids, pcfg,
+                              tcfg)[2]
+
+
+def _store_step(times, hashes, valid, ids, table, counts,
+                tcfg: DT.TableConfig) -> None:
+    """DT.store_batch as its graph cache calls it."""
+    DT.store_batch(table, counts, times, hashes, valid, ids, tcfg)
+
+
+def _ingest_bytes(rows: int, n: int, pcfg: PipelineConfig) -> int:
+    """An estimate of the device bytes a (rows, n) fused ingest keeps
+    live: the fingerprint's, and the store's over every landmark slot."""
+    T = pipe.n_frames_padded_static(n, pcfg)
+    slots = rows * pcfg.shifts * T * pcfg.maxpksperframe * \
+        pcfg.maxpairsperpeak
+    return pipe.fingerprint_bytes(rows, n, pcfg) + DT.store_bytes(slots)
 
 
 def _pack_entries(t, h, uniq, ids, tcfg: DT.TableConfig):
@@ -182,6 +209,11 @@ class DeviceIngest:
                     ht, self.device)
         self._repl_store = None     # made on first use (mesh only)
         self.replays = 0            # chunks replayed after a cap overflow
+        # one device: the fused ingest's and the host hashes' store's
+        # captured graphs, one per shape key; the state is (table, counts)
+        counters = pipe.launch_counters()
+        self._ingest = graphs.GraphCache(_ingest_step, self.device, counters)
+        self._store = graphs.GraphCache(_store_step, self.device, counters)
 
     # -- chunk path -------------------------------------------------------
 
@@ -257,13 +289,11 @@ class DeviceIngest:
         if self.mesh is not None:
             cnt_ok = self._fn(self.table, self.counts, batch, lens, ids)
         else:
-            dev = self.device
             # the ok flag is a notion of the mesh's routing
-            cnt_ok = fused_ingest_graph(
-                self.table, self.counts, torch.as_tensor(batch, device=dev),
-                torch.as_tensor(lens, device=dev),
-                torch.as_tensor(ids, device=dev), self.analyzer.config,
-                self.cfg)[2]
+            pcfg = self.analyzer.config
+            cnt_ok = self._ingest.budgeted(
+                (batch, lens, ids), (self.table, self.counts),
+                (pcfg, self.cfg), _ingest_bytes(*batch.shape, pcfg))
         return ("wav", names, durs, cnt_ok, ids, batch, lens)
 
     def _dispatch_pre(self, rows):
@@ -273,12 +303,8 @@ class DeviceIngest:
         if self.mesh is not None:
             self._repl_store_fn()(self.table, self.counts, tt, hh, vv, ids)
         else:
-            dev = self.device
-            DT.store_batch(self.table, self.counts,
-                           torch.as_tensor(tt, device=dev),
-                           torch.as_tensor(hh, device=dev),
-                           torch.as_tensor(vv, device=dev),
-                           torch.as_tensor(ids, device=dev), self.cfg)
+            self._store.budgeted((tt, hh, vv, ids), (self.table, self.counts),
+                                 (self.cfg,), DT.store_bytes(hh.size))
         return ("pre", [n for n, _, _ in rows], [d for _, _, d in rows],
                 [len(h) for _, h, _ in rows], None, None, None)
 

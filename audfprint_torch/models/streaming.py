@@ -17,10 +17,19 @@ all shifts batched into one (S, Nc) row block:
 
 The backward prune runs on the host over the sparse forward peaks
 (oracle.analyze.bwd_prune_sparse); pair_kept_slots pairs the kept peaks on
-the device.  Results are fetched two chunks behind the dispatch: each
-chunk's results are copied into pinned host memory without blocking and
-the host waits on that chunk's own event, so disk reads and host work
-overlap the card.
+the device, its frames and anchors padded to powers of two so that one
+shape serves many files.  Results are fetched two chunks behind the
+dispatch: each chunk's results are copied into pinned host memory without
+blocking and the host waits on that chunk's own event, so disk reads and
+host work overlap the card.
+
+On a CUDA device the stats pass, the peaks pass and the pairing replay
+captured CUDA graphs (StreamGraphs, one set per device, so a run over
+many long files captures each key once).  A file has at most four keys:
+the stats chunk, the first peaks chunk (it seeds the envelope from its
+head), the other peaks chunks (the last, partial one is padded with
+zeros and differs only in its frame counts) and its pairing bucket.
+chunk_stats_below and the f64 mean fallback run eagerly.
 
 Wrong-rate PCM WAVs stream through ResampledWavSource (chunked polyphase
 resampling, bit-identical to resampling the whole file).  Other inputs
@@ -41,8 +50,10 @@ from audfprint_torch import params as P
 from audfprint_torch.oracle import analyze as oa
 from audfprint_torch.ops.config import PipelineConfig
 from audfprint_torch.utils import audio as audio_io
-from audfprint_torch.ops import peaks as PK
+from audfprint_torch.ops import cuda_peaks as CP
+from audfprint_torch.ops import pipeline as pipe
 from audfprint_torch.ops import streaming as ST
+from audfprint_torch.utils import graphs
 
 
 class StreamUnsupported(Exception):
@@ -258,6 +269,41 @@ class _ChunkReader:
         return dev[0], dev[1], nf
 
 
+class StreamGraphs:
+    """The streamed route's graph caches on one device: the stats pass
+    (chunk_stats), the peaks pass (chunk_fwd_peaks_step, with the bump
+    template as its state and (cfg, first chunk) as its static key) and
+    the pairing (pair_kept_slots)."""
+
+    def __init__(self, device):
+        counters = pipe.launch_counters()
+        self.stats = graphs.GraphCache(ST.chunk_stats, device, counters)
+        self.peaks = graphs.GraphCache(ST.chunk_fwd_peaks_step, device,
+                                       counters)
+        self.pair = graphs.GraphCache(ST.pair_kept_slots, device, counters)
+
+    def keys(self) -> list:
+        return self.stats.keys() + self.peaks.keys() + self.pair.keys()
+
+
+_GRAPHS: dict = {}
+
+
+def stream_graphs(device) -> StreamGraphs:
+    """The streamed route's graph caches of `device`, made on first use
+    and kept for the process's life."""
+    dev = torch.device(device)
+    if dev not in _GRAPHS:
+        _GRAPHS[dev] = StreamGraphs(dev)
+    return _GRAPHS[dev]
+
+
+def _chunk_bytes(rd: _ChunkReader, cfg: PipelineConfig) -> int:
+    """An estimate of a chunk pass's device bytes: the fingerprint's
+    for its (S, Nc) rows."""
+    return pipe.fingerprint_bytes(1, rd.Nc, cfg)
+
+
 def _stats_pass(rd: _ChunkReader, cfg: PipelineConfig):
     """Chunked whitening stats: per shift (gmax f32, mean f32).  The
     integer level sums make the mean chunking-invariant by construction;
@@ -280,9 +326,11 @@ def _stats_pass(rd: _ChunkReader, cfg: PipelineConfig):
             totals[s] += ST.levels_to_int(sums[s])
         resmax = max(resmax, float(rm))
 
+    cache = stream_graphs(rd.device).stats
     for c in range(rd.nchunks):
         dev, nf_dev, _nf = rd.chunk_dev(c)
-        pend.append((c, _Fetch(*ST.chunk_stats(dev, nf_dev, cfg))))
+        pend.append((c, _Fetch(*cache.budgeted(
+            (dev, nf_dev), (), (cfg,), _chunk_bytes(rd, cfg)))))
         if len(pend) > _LAG:
             drain()
     while pend:
@@ -350,11 +398,14 @@ def _peaks_pass(rd: _ChunkReader, cfg: PipelineConfig, gmax: np.ndarray,
     S = len(rd.offs)
     F = cfg.n_bins
     dev = rd.device
-    carry = None                     # the HPF starts from zeros
-    env = torch.zeros((S, F), dtype=torch.float32, device=dev)
+    # the HPF's (xprev, yprev) and the envelope start from zeros
+    carry = tuple(torch.zeros((S, F), dtype=torch.float32, device=dev)
+                  for _ in range(3))
     gmax_dev = _to_device(np.asarray(gmax, np.float32), dev)
     mean_dev = _to_device(np.asarray(mean, np.float32), dev)
-    gvec = _to_device(PK.gauss_vector(cfg), dev)
+    # the bump template, made once per (cfg, device): the graphs' state
+    gvec = CP.gauss_vector_on(cfg, dev)
+    cache = stream_graphs(dev).peaks
 
     ts = [[] for _ in range(S)]
     poss = [[] for _ in range(S)]
@@ -377,9 +428,12 @@ def _peaks_pass(rd: _ChunkReader, cfg: PipelineConfig, gmax: np.ndarray,
 
     for c in range(rd.nchunks):
         audio, nf_dev, nf = rd.chunk_dev(c)
-        out, env, carry = ST.chunk_fwd_peaks(
-            audio, nf_dev, gmax_dev, mean_dev, carry, env, gvec, cfg, c == 0)
-        pend.append((c, nf, _Fetch(*out)))
+        xprev, yprev, env = carry
+        out = cache.budgeted(
+            (audio, nf_dev, gmax_dev, mean_dev, xprev, yprev, env), (gvec,),
+            (cfg, c == 0), _chunk_bytes(rd, cfg))
+        carry = (out[5], out[6], out[4])
+        pend.append((c, nf, _Fetch(*out[:4])))
         if len(pend) > _LAG:
             drain()
     while pend:
@@ -392,12 +446,20 @@ def _peaks_pass(rd: _ChunkReader, cfg: PipelineConfig, gmax: np.ndarray,
              cat(vals[s], np.float32), last_row[s]) for s in range(S)]
 
 
+def _pow2(n: int, lo: int = 128) -> int:
+    return max(lo, 1 << (max(1, int(n)) - 1).bit_length())
+
+
 def _pair_on_device(kept: list, Tmax: int, cfg: PipelineConfig,
                     device: torch.device) -> list:
     """Pair the final kept peak streams: one pair_kept_slots dispatch for
     all shifts, one fetch (the anchor times are already on the host).
     Content-identical to the oracle peaks2landmarks/landmarks2hashes
-    pairing (tests/test_torch_streaming.py holds the two equal).
+    pairing (tests/test_torch_streaming.py holds the two equal).  The
+    frames and the anchors are padded to powers of two (at least 128), as
+    the JAX package pads them, so that one captured shape serves many
+    files: frames past the file are empty, and the host slices off the
+    padded anchors.
 
     kept: per shift (t ascending, bin ascending within a frame) kept-peak
     arrays, or None for an inactive shift.  Returns per active shift an
@@ -406,9 +468,10 @@ def _pair_on_device(kept: list, Tmax: int, cfg: PipelineConfig,
     act = [x for x in kept if x is not None and len(x[0])]
     if not act:
         return []
-    A = max(len(x[0]) for x in act)
+    Tp = _pow2(Tmax)
+    A = _pow2(max(len(x[0]) for x in act))
     S = len(kept)
-    slots = np.zeros((S, Tmax, K), np.int16)
+    slots = np.zeros((S, Tp, K), np.int16)
     anchors = np.zeros((S, A), np.int64)
     n_a = [0] * S
     for s, x in enumerate(kept):
@@ -419,8 +482,9 @@ def _pair_on_device(kept: list, Tmax: int, cfg: PipelineConfig,
         slots[s, t, slot] = p.astype(np.int16) + 1
         anchors[s, : len(t)] = t * K + slot
         n_a[s] = len(t)
-    (g,) = _Fetch(ST.pair_kept_slots(_to_device(slots, device),
-                                     _to_device(anchors, device), cfg)).get()
+    nbytes = 16 * S * Tp * K * cfg.maxpairsperpeak
+    (g,) = _Fetch(stream_graphs(device).pair.budgeted(
+        (slots, anchors), (), (cfg,), nbytes)).get()
     out = []
     for s in range(S):
         n = n_a[s]

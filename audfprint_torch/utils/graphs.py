@@ -1,27 +1,38 @@
 """Captured CUDA graphs, one per shape key: the port's counterpart of the
 executable cache of jax.jit.
 
-The JAX package compiles its serving functions once per static shape and
-replays the executable: the fused fingerprint + match, and the two
-halves of the two-stage path (`fingerprint_batch_compact_k` and
-`match_batch_packed`).  PyTorch runs eagerly, so each call dispatches
-its hundreds of ops from Python again.  GraphCache captures a function
-into a torch.cuda.CUDAGraph on the first call of a key, as jax.jit
-compiles on its first call, and replays the graph on every later call:
-the input copies, one graph launch and a clone of the output.
+The JAX package compiles its functions once per static shape and
+replays the executable: the fused fingerprint + match, the two halves of
+the two-stage path (`fingerprint_batch_compact_k` and
+`match_batch_packed`), the fused ingest and store (with the table
+donated), the streamed route's chunk passes and pairing, and
+`peaks_batch`.  PyTorch runs eagerly, so each call dispatches its
+hundreds of ops from Python again.  GraphCache captures a function into
+a torch.cuda.CUDAGraph on the first call of a key, as jax.jit compiles
+on its first call, and replays the graph on every later call: the input
+copies, one graph launch and a clone of the output.
 
-Key: each host input's (shape, dtype) (rows, bucket length, int16 PCM or
+Key: each input's (shape, dtype) (rows, bucket length, int16 PCM or
 float32), which entries of the device state are None (the hpi plane) and
 the static arguments.  A graph reads the device state it was captured
 with by address, so the cache holds that state and drops every graph
 when a call passes another: no graph replays against a table that was
-freed or replaced.
+freed or replaced.  A function may write its device state in place (the
+device store's table and counts, the counterpart of donate_argnums):
+each replay writes it once.
 
 An entry holds the static input buffers, the graph and its static output
-(a tensor or a tuple of tensors).  The inputs are staged through pinned
-host memory and copied without blocking; the caching host allocator
-keeps a pinned block until the copy that reads it has run, so the next
-call's staging cannot overwrite it.
+(a tensor, a tuple of tensors, or None).  Host numpy inputs are staged
+through pinned host memory and copied without blocking; the caching host
+allocator keeps a pinned block until the copy that reads it has run, so
+the next call's staging cannot overwrite it.  Device tensor inputs (the
+streamed route's chunk rows and carries) are copied device to device on
+the stream.
+
+The first call of a key runs the function once eagerly on a side stream
+(the warm-up), captures it, and returns the warm-up run's own output: a
+capture runs nothing, so a function that writes its state writes it
+once on that call too.  Later calls replay.
 
 Two calls may share a key before the caller reads either result (the
 Matcher and the Analyzer queue every group of a batch before they
@@ -47,6 +58,7 @@ function directly.
 
 from __future__ import annotations
 
+import functools
 import time
 import weakref
 from typing import NamedTuple
@@ -130,16 +142,28 @@ def make_room(device: torch.device, need: int, budget: int) -> bool:
     return True
 
 
-def _warm(fn, device: torch.device) -> None:
+def _tensors(out) -> tuple:
+    if out is None:
+        return ()
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _warm(fn, device: torch.device):
     """fn() once on a side stream before a capture (PyTorch's recipe):
     cuFFT plans, the kernel library, cached constants and the allocator
-    are set up outside the graph."""
+    are set up outside the graph.  Returns its output, which the key's
+    first call hands back, marked as used on the current stream so that
+    the allocator does not hand its blocks to the side stream early."""
     with torch.cuda.device(device):
+        cur = torch.cuda.current_stream()
         side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
+        side.wait_stream(cur)
         with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
+            out = fn()
+        cur.wait_stream(side)
+        for t in _tensors(out):
+            t.record_stream(cur)
+    return out
 
 
 def _record(fn, device: torch.device, pool):
@@ -162,12 +186,18 @@ def _record(fn, device: torch.device, pool):
     return graph, out, pool, max(0, grown)
 
 
-def _staged(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _staged(a, device: torch.device) -> torch.Tensor:
+    """An input ready to copy into its static buffer: a device tensor as
+    it is, a host numpy array in pinned memory."""
+    if isinstance(a, torch.Tensor):
+        return a
     t = torch.from_numpy(np.ascontiguousarray(a))
     return t.pin_memory() if device.type == "cuda" else t
 
 
 def _clone(out):
+    if out is None:
+        return None
     if isinstance(out, tuple):
         return tuple(o.clone() for o in out)
     return out.clone()
@@ -187,11 +217,11 @@ class _Entry(NamedTuple):
 class GraphCache:
     """Captured graphs of fn(*inputs, *state, *static), one per key.
 
-    inputs: host numpy arrays, copied into the graph's static buffers on
-    each call; state: device tensors (or None) the graphs read in place;
-    static: hashable arguments that shape the graph.  counters: the
-    kernel wrappers' launch-count dicts; a replay adds to them the
-    launches its capture queued."""
+    inputs: host numpy arrays or device tensors, copied into the graph's
+    static buffers on each call; state: device tensors (or None) the
+    graphs read, and may write, in place; static: hashable arguments
+    that shape the graph.  counters: the kernel wrappers' launch-count
+    dicts; a replay adds to them the launches its capture queued."""
 
     def __init__(self, fn, device, counters: tuple = ()):
         self.fn = fn
@@ -203,7 +233,9 @@ class GraphCache:
 
     @staticmethod
     def key(inputs, state, static) -> tuple:
-        return (tuple((a.shape, a.dtype.str) for a in inputs),
+        return (tuple((tuple(a.shape), str(a.dtype))
+                      if isinstance(a, torch.Tensor) else
+                      (a.shape, a.dtype.str) for a in inputs),
                 tuple(s is None for s in state), tuple(static))
 
     def keys(self) -> list:
@@ -243,6 +275,15 @@ class GraphCache:
         return {k: e.pool_bytes + e.input_bytes
                 for k, e in self._entries.items()}
 
+    def budgeted(self, inputs, state, static, nbytes: int):
+        """self(inputs, state, static), after the budget rule
+        (make_room) when its key is new and its capture needs about
+        `nbytes`."""
+        need = self.need([(inputs, state, static, nbytes)])
+        if need:
+            make_room(self.device, need, budget_bytes(self.device))
+        return self(inputs, state, static)
+
     def capture_seconds(self) -> dict:
         return {k: e.capture_s for k, e in self._entries.items()}
 
@@ -269,7 +310,7 @@ class GraphCache:
         key = self.key(inputs, state, static)
         entry = self._entries.get(key)
         if entry is None:
-            entry = self._capture(key, inputs, state, static)
+            return self._capture(key, inputs, state, static)
         for buf, a in zip(entry.inputs, inputs):
             buf.copy_(_staged(a, dev), non_blocking=True)
         entry.graph.replay()
@@ -285,7 +326,9 @@ class GraphCache:
         for (i, k), n in delta.items():
             self.counters[i][k] += n
 
-    def _capture(self, key, inputs, state, static) -> _Entry:
+    def _capture(self, key, inputs, state, static):
+        """Warm-up run, capture and a new entry for `key`; returns the
+        warm-up run's output."""
         dev = self.device
         sh = _shared(dev)
         if not sh.live():
@@ -294,27 +337,25 @@ class GraphCache:
         t0 = time.perf_counter()
         bufs = []
         for a in inputs:
-            host = _staged(a, dev)
-            bufs.append(torch.empty_like(host, device=dev))
-            bufs[-1].copy_(host, non_blocking=True)
+            src = _staged(a, dev)
+            bufs.append(torch.empty_like(src, device=dev))
+            bufs[-1].copy_(src, non_blocking=True)
         bufs = tuple(bufs)
 
-        def run():
-            return self.fn(*bufs, *state, *static)
-
-        _warm(run, dev)
+        run = functools.partial(self.fn, *bufs, *state, *static)
+        out = _warm(run, dev)
         # the wrappers count a launch as they queue it; during the capture
         # nothing is launched, so those counts become the graph's own,
         # added back at each replay
         before = self._launch_snapshot()
-        graph, out, sh.pool, grown = _record(run, dev, sh.pool)
+        graph, static_out, sh.pool, grown = _record(run, dev, sh.pool)
         after = self._launch_snapshot()
         launches = {k: n - before.get(k, 0) for k, n in after.items()
                     if n != before.get(k, 0)}
         self._add_launches({k: -n for k, n in launches.items()})
-        entry = _Entry(bufs, graph, out, launches, time.perf_counter() - t0,
-                       grown, sum(b.numel() * b.element_size() for b in bufs))
-        self._entries[key] = entry
+        self._entries[key] = _Entry(
+            bufs, graph, static_out, launches, time.perf_counter() - t0,
+            grown, sum(b.numel() * b.element_size() for b in bufs))
         sh.pool_bytes += grown
         counts["captures"] += 1
-        return entry
+        return out

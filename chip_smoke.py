@@ -55,11 +55,20 @@ Phases (any failure exits non-zero before the result line):
      timed on the candidate map of one (256 x 30 s) batch of the corpus,
      K3 held against its plain version and timed on its peak slots
   7. the fused device store (models/ingest.DeviceIngest) over the same
-     1,000 tracks: table, counts and hashesperid equal the host store's
-     bit for bit; ingest rate against fingerprint + host store
+     1,000 tracks, each chunk after the first replaying the ingest key's
+     CUDA graph: table, counts and hashesperid equal the host store's bit
+     for bit, eager and replayed; K1, K2 and K3 once a chunk (counts) and
+     once a replay (torch.profiler); the key's capture seconds and MiB;
+     the ingest rate eager against replay in turns, beside fingerprint +
+     host store; then `precompute -K`'s batched peaks (256 x 30 s),
+     replayed equal to eager, and their rate both ways
   8. streaming: K1f timed on an 8,192-frame chunk of a seeded 7,200 s
-     WAV, then the WAV through Analyzer's streamed route (K1f, K2 and K3
-     launched, time, device memory peak), equal at 8,192- and 2,048-frame
+     WAV, then the WAV through Analyzer's streamed route, whose passes
+     replay CUDA graphs (K1f, K2 and K3 launched, time, device memory
+     peak); its hashes equal eager and replayed in turns, the reversed
+     file (same length) captures no key, one chunk's stats and peaks
+     host dispatch eager against replay, K1f and K2 once a peaks replay
+     (torch.profiler); equal at 8,192- and 2,048-frame
      chunks, Jaccard > 0.9 against the in-memory path; then
      `new` on it and two songs as a subprocess (the long file must stream)
      and 10 s excerpts from 0:30, 59:00 and 1:58:00 matched at rank 0 with
@@ -1398,7 +1407,8 @@ def phase_vote_rows(torch, ctx, dev) -> dict:
 @contextlib.contextmanager
 def eager_graphs():
     """Inside, every graph cache (the fused path's, the two-stage vote's
-    and fingerprint's) runs its eager function, as on a CPU device: a
+    and fingerprint's, the device store's, the streamed route's and
+    `precompute -K`'s) runs its eager function, as on a CPU device: a
     measurement aid of this script; the port itself has no way to turn
     its graphs off."""
     from audfprint_torch.utils import graphs
@@ -1425,10 +1435,10 @@ def _key_name(key) -> str:
 GRAPH_KERNELS = ("prune_fwd_bwd", "hpf_scan", "pair_scan")
 
 
-def _cuda_events(torch, fn) -> tuple:
+def _cuda_events(torch, fn, kernels=GRAPH_KERNELS) -> tuple:
     """(device events, device busy ms, {kernel: events whose name holds
-    it} for GRAPH_KERNELS) of one fn() under torch.profiler, which lists
-    a graph replay's kernels one by one."""
+    it} for `kernels`) of one fn() under torch.profiler, which lists a
+    graph replay's kernels one by one."""
     import torch.profiler as tp
 
     with tp.profile(activities=[tp.ProfilerActivity.CPU,
@@ -1437,7 +1447,7 @@ def _cuda_events(torch, fn) -> tuple:
         torch.cuda.synchronize()
     ev = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {k: sum(k in e.name for e in ev) for k in GRAPH_KERNELS}
+    by_name = {k: sum(k in e.name for e in ev) for k in kernels}
     return len(ev), sum(e.device_time for e in ev) / 1e3, by_name
 
 
@@ -1585,7 +1595,7 @@ def phase_graphs(torch, rec: dict, ctx, dev) -> dict:
           f"{[round(x, 2) for x in rate['replay']]}")
 
     # a key's first call, what a one-shot `match` process pays: the eager
-    # function against warm-up run + capture + replay, each on a fresh
+    # function against warm-up run + capture, each on a fresh
     # Matcher whose table is staged first, untimed; in turns, 5 rounds
     cold = {"eager": [], "capture": []}
     for _r in range(5):
@@ -2282,6 +2292,9 @@ def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
     n = 8191 * 256 + 512                         # one 8192-frame chunk
     prune_on_real(torch, rec, x[None, len(x) // 2: len(x) // 2 + n],
                   np.array([n]), carry=True)
+    # a second long file of the same length, for the keys it should reuse
+    long2 = os.path.join(d, "long_reversed.wav")
+    audio_write_wav(long2, x[::-1].copy(), SR)
     del x
     print(f"streaming: wrote a {long_sec:g} s WAV "
           f"({os.path.getsize(long_wav) / 1e6:.1f} MB) in "
@@ -2306,6 +2319,8 @@ def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
     print(f"streamed {dur:.1f} s: {len(h8192)} hashes in {t_stream:.3f} s = "
           f"{dur / t_stream:.1f} audio-s/s; device memory peak "
           f"{peak_stream / 2**20:.1f} MiB; launches {launches}")
+
+    streaming_graphs(torch, an, long_wav, long2, h8192, dev)
 
     t0 = time.time()
     h2048 = an.wavfile2hashes_streaming(long_wav, chunk_frames=2048)
@@ -2367,50 +2382,252 @@ def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
             "cli_new_long_wall_s": t_cli}
 
 
+def streaming_graphs(torch, an, long_wav: str, long2: str, h8192, dev,
+                     rounds: int = 2) -> None:
+    """The streamed route's graphs on the 7,200 s file: its hashes equal
+    eager and replayed, a second file of its length captures no key, the
+    stats and peaks passes' host dispatch of one chunk eager against
+    replay, and one peaks replay's kernels under torch.profiler."""
+    from audfprint_torch.models import streaming as STM
+    from audfprint_torch.ops import cuda_peaks as CP
+    from audfprint_torch.utils import graphs
+
+    smi = nvidia_smi_line()
+    sg = STM.stream_graphs(an.device)
+    keys = sg.keys()
+    walls = {"eager": [], "replay": []}
+    for _r in range(rounds):
+        for mode in ("eager", "replay"):
+            with (eager_graphs() if mode == "eager"
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                h = an.wavfile2hashes_streaming(long_wav)
+                walls[mode].append(time.perf_counter() - t0)
+            require(np.array_equal(h, h8192),
+                    f"streamed hashes ({mode}) differ from the first run's")
+    require(sg.keys() == keys, "a streamed file of the same shape was "
+                               "captured again")
+    caps = graphs.counts["captures"]
+    h2 = an.wavfile2hashes_streaming(long2)
+    require(graphs.counts["captures"] == caps,
+            f"a second streamed file captured "
+            f"{graphs.counts['captures'] - caps} keys: {sg.keys()[len(keys):]}")
+    require(len(h2) > len(h8192) // 2, "the reversed file gave few hashes")
+
+    # one chunk's passes, host dispatch eager against replay
+    cfg = an.config
+    src = STM.open_stream_source(long_wav, an.target_sr)
+    rd = STM._ChunkReader(src, cfg, an.stream_chunk_frames, dev)
+    audio, nf, _nf = rd.chunk_dev(1)
+    src.close()
+    S = len(rd.offs)
+    z = torch.zeros((S, cfg.n_bins), dtype=torch.float32, device=dev)
+    zs, ones = (torch.full((S,), v, dtype=torch.float32, device=dev)
+                for v in (0.0, 1.0))
+    gvec = CP.gauss_vector_on(cfg, dev)
+    nbytes = STM._chunk_bytes(rd, cfg)
+
+    def peaks():
+        return sg.peaks.budgeted((audio, nf, ones, zs, z, z, z),
+                                 (gvec,), (cfg, False), nbytes)
+
+    def stats():
+        return sg.stats.budgeted((audio, nf), (), (cfg,), nbytes)
+
+    def eager(fn):
+        def run():
+            with eager_graphs():
+                return fn()
+        return run
+
+    peaks(), stats()
+    med = _in_turns(torch, {"stats eager": eager(stats), "stats replay": stats,
+                            "peaks eager": eager(peaks),
+                            "peaks replay": peaks})
+    _n, _ms, seen = _cuda_events(torch, peaks, ("prune_fwd_carry",
+                                                "hpf_scan"))
+    require(all(v == 1 for v in seen.values()),
+            f"one peaks replay ran the kernels {seen} times, not once each")
+    dur = an.soundfiledur
+    print(f"streaming graphs [{smi}]: {len(keys)} keys "
+          f"{[_key_shapes(k) for k in keys]}; the {dur:.0f} s file's "
+          f"hashes equal eager and replayed; wall s by round, eager "
+          f"{[round(x, 3) for x in walls['eager']]}, replay "
+          f"{[round(x, 3) for x in walls['replay']]}; a second file of its "
+          f"length captured 0 keys; one {rd.Tc}-frame chunk's host "
+          f"dispatch ms (median of 50 calls in 5 rounds) "
+          f"{ {k: round(v, 3) for k, v in med.items()} }; one peaks replay "
+          f"ran {seen} (torch.profiler)")
+
+
+def _key_shapes(key) -> list:
+    return [shape for shape, _dt in key[0]]
+
+
 def phase_device_store(torch, rec: dict, tracks: list, ht_host,
-                       t_two_stage: float, dev, chunk: int = 256) -> dict:
-    """The fused device store over config 2's tracks: bit-identical to the
-    host store, and its ingest rate against fingerprint + host store."""
+                       t_two_stage: float, dev, chunk: int = 256,
+                       rounds: int = 3) -> dict:
+    """The fused device store over config 2's tracks, each chunk after
+    the first replaying the ingest key's captured graph: bit-identical to
+    the host store both ways, the key's capture seconds and MiB, one
+    replay's kernels under torch.profiler, and the rate eager against
+    replay in turns; then `precompute -K`'s batched peaks (256 x 30 s),
+    replayed against eager."""
     from audfprint_torch.index.hash_table import HashTable
     from audfprint_torch.models.analyzer import Analyzer
     from audfprint_torch.models.ingest import DeviceIngest
 
+    smi = nvidia_smi_line()
     an = Analyzer(device=dev)
     names = [f"track{i}" for i in range(len(tracks))]
-    warm = DeviceIngest(HashTable(), an)       # allocator, cuFFT plans
-    warm.consume_chunk(warm.dispatch_chunk(
-        [(n, "wav", x) for n, x in zip(names[:chunk], tracks[:chunk])],
-        print))
-    del warm
-    ht = HashTable()
-    # ---- the device-store path, counted ----
-    _counts_zero()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    ing = DeviceIngest(ht, an)
-    for i in range(0, len(tracks), chunk):
-        ing.consume_chunk(ing.dispatch_chunk(
-            [(n, "wav", x) for n, x in zip(names[i: i + chunk],
-                                           tracks[i: i + chunk])], print))
-    ing.finalize()
-    t_dev = time.time() - t0
-    launches = _counts()
-    same = (np.array_equal(ht.table, ht_host.table)
-            and np.array_equal(ht.counts, ht_host.counts)
-            and np.array_equal(ht.hashesperid, ht_host.hashesperid)
-            and ht.names == ht_host.names)
+    chunks = [[(n, "wav", x) for n, x in zip(names[i: i + chunk],
+                                             tracks[i: i + chunk])]
+              for i in range(0, len(tracks), chunk)]
     audio = sum(len(x) for x in tracks) / SR
-    print(f"device store, config 2: {len(tracks)} tracks in {t_dev:.3f} s = "
-          f"{audio / t_dev:.1f} audio-s/s fused (fingerprint + host store: "
-          f"{audio / t_two_stage:.1f} audio-s/s); table, counts and "
-          f"hashesperid equal the host store's: {same}; launches {launches}")
-    require(same, "the device store's table differs from the host store's")
-    require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
-            and launches["pair_scan"] > 0,
-            f"a kernel was not launched on the device-store path: {launches}")
+    later = sum(len(x) for c in chunks[1:] for _n, _k, x in c) / SR
+
+    def ingest(mode):
+        """A fresh DeviceIngest over every chunk, then finalize -> (host
+        table, ingest, whole wall s, wall s of the chunks after the
+        first, which replay)."""
+        ht = HashTable()
+        with (eager_graphs() if mode == "eager"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ing = DeviceIngest(ht, an)
+            for i, c in enumerate(chunks):
+                ing.consume_chunk(ing.dispatch_chunk(c, print))
+                if i == 0:
+                    t1 = time.perf_counter()
+            t2 = time.perf_counter()
+            ing.finalize()
+            t3 = time.perf_counter()
+        return ht, ing, t3 - t0, t2 - t1
+
+    warm, _ing, _w, _l = ingest("eager")       # allocator, cuFFT plans
+    require(_tables_equal(warm, ht_host),
+            "the eager device store's table differs from the host store's")
+    del warm, _ing
+    # ---- the device-store path, counted (the key's first call warms and
+    # captures, the other chunks replay) ----
+    _counts_zero()
+    ht, ing, t_dev, _l = ingest("replay")
+    launches = _counts()
+    require(_tables_equal(ht, ht_host),
+            "the replayed device store's table differs from the host store's")
+    require(all(launches[k] == len(chunks) for k in GRAPH_KERNELS),
+            f"the device-store path did not launch K1, K2 and K3 once a "
+            f"chunk: {launches}")
     rec["_paths"]["device_store"] = launches
+    # the key of the full chunks (a short last chunk may have its own)
+    cap_s = list(ing._ingest.capture_seconds().values())[0]
+    held = list(ing._ingest.held_by_key().values())[0] / 2**20
+    _n, _ms, seen = _cuda_events(
+        torch, lambda: ing.consume_chunk(ing.dispatch_chunk(chunks[1],
+                                                            print)))
+    require(all(seen[k] == 1 for k in GRAPH_KERNELS),
+            f"one ingest replay ran the kernels {seen} times, not once each")
+    del ing
+    print(f"device store [{smi}], config 2: {len(tracks)} tracks in "
+          f"{t_dev:.3f} s = {audio / t_dev:.1f} audio-s/s, its ingest key "
+          f"({len(chunks[0])} x 30 s) captured in {cap_s:.3f} s, holding "
+          f"{held:.1f} MiB (fingerprint + host store: "
+          f"{audio / t_two_stage:.1f} audio-s/s); table, counts and "
+          f"hashesperid equal the host store's; launches {launches}; one "
+          f"replay ran {seen} (torch.profiler)")
+
+    rate = {"eager": [], "replay": []}
+    steady = {"eager": [], "replay": []}
+    for _r in range(rounds):
+        for mode in ("eager", "replay"):
+            got, _ing, wall, wall_later = ingest(mode)
+            require(_tables_equal(got, ht_host),
+                    f"the device store ({mode}) differs from the host store")
+            rate[mode].append(audio / wall)
+            steady[mode].append(later / wall_later)
+            del got, _ing
+    print(f"device store [{smi}]: audio-s/s by round, whole run (DeviceIngest,"
+          f" {len(chunks)} chunks, finalize; the replayed run captures its "
+          f"key on its first chunk) eager {[round(x, 1) for x in rate['eager']]}"
+          f", replay {[round(x, 1) for x in rate['replay']]}; chunks 2-"
+          f"{len(chunks)} eager {[round(x, 1) for x in steady['eager']]}, "
+          f"replay {[round(x, 1) for x in steady['replay']]}")
+
+    # where a chunk's wall goes: the host's padded batch, its pinned
+    # staging, the dispatch (both included) and the wait for the counts
+    from audfprint_torch.utils import graphs
+    sigs1 = [x for _n, _k, x in chunks[1]]
+    parts = {}
+    for mode in ("eager", "replay"):
+        with (eager_graphs() if mode == "eager"
+              else contextlib.nullcontext()):
+            ing = DeviceIngest(HashTable(), an)
+            ing.consume_chunk(ing.dispatch_chunk(chunks[1], print))
+            ms = []
+            for _r in range(3):
+                t0 = time.perf_counter()
+                batch, _lens = ing._stage_chunk(sigs1)
+                t1 = time.perf_counter()
+                graphs._staged(batch, dev)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                handle = ing.dispatch_chunk(chunks[1], print)
+                t3 = time.perf_counter()
+                ing.consume_chunk(handle)
+                t4 = time.perf_counter()
+                ms.append([1e3 * (t1 - t0), 1e3 * (t2 - t1), 1e3 * (t3 - t2),
+                           1e3 * (t4 - t3)])
+            parts[mode] = [round(float(v), 1) for v in np.median(ms, axis=0)]
+            del ing, batch
+    print(f"device store [{smi}]: one {len(sigs1)} x 30 s chunk, host ms "
+          f"(median of 3): pad the batch, stage it in pinned memory, "
+          f"dispatch_chunk (both included), consume_chunk's wait: eager "
+          f"{parts['eager']}, replay {parts['replay']}")
+
+    # ---- precompute -K: the batched peaks, eager against replay ----
+    sigs = tracks[:chunk]
+    with eager_graphs():
+        want = an.samples_batch2peaks(sigs)
+    t0 = time.perf_counter()
+    first = an.samples_batch2peaks(sigs)       # warms and captures
+    t_first = time.perf_counter() - t0
+    require(first == want, "precompute -K: the first call's peaks differ "
+                           "from the eager call's")
+    pk_rate = {"eager": [], "replay": []}
+    for _r in range(rounds):
+        for mode in ("eager", "replay"):
+            with (eager_graphs() if mode == "eager"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = an.samples_batch2peaks(sigs)
+                pk_rate[mode].append(
+                    len(sigs) * 30.0 / (time.perf_counter() - t0))
+            require(got == want, f"precompute -K ({mode}): the peaks differ "
+                                 "from the eager call's")
+    # one replay, counted: K1 and K2, no pairing
+    _counts_zero()
+    require(an.samples_batch2peaks(sigs) == want,
+            "precompute -K: the counted replay's peaks differ")
+    pk_launches = _counts()
+    require(pk_launches["prune_fwd_bwd"] == pk_launches["hpf_scan"] == 1,
+            f"precompute -K's replay launched {pk_launches}")
+    rec["_paths"]["precompute_k"] = pk_launches
+    print(f"precompute -K [{smi}]: {len(sigs)} x 30 s, replayed peaks equal "
+          f"the eager call's ({sum(map(len, want))} peaks); first call "
+          f"(warm-up + capture) {t_first:.3f} s; audio-s/s by round, eager "
+          f"{[round(x, 1) for x in pk_rate['eager']]}, replay "
+          f"{[round(x, 1) for x in pk_rate['replay']]}; key holds "
+          f"{an._peaks.held_bytes / 2**20:.1f} MiB; one replay launched "
+          f"{pk_launches}")
+    an._peaks.clear()
     return {"device_store_audio_s_per_s": audio / t_dev,
-            "two_stage_audio_s_per_s": audio / t_two_stage}
+            "two_stage_audio_s_per_s": audio / t_two_stage,
+            "device_store_rate": rate, "device_store_steady_rate": steady,
+            "ingest_key_capture_s": cap_s, "ingest_key_mib": held,
+            "device_store_chunk_ms": parts,
+            "precompute_k_rate": pk_rate, "precompute_k_first_s": t_first}
 
 
 def _sync(torch, dev) -> None:
@@ -2682,7 +2899,7 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
     held = {f"{k[0][0][0][0]}x{k[0][0][0][1]}": round(b / 2**20, 1)
             for k, b in matcher._votes.held_by_key().items() if k in vkey}
     print(f"broadcast [{nvidia_smi_line()}]: the windowed vote's first call "
-          f"(warm-up run, capture and replay of its key) {t_cap:.3f} s; "
+          f"(warm-up run and capture of its key) {t_cap:.3f} s; "
           f"captured into an empty pool, its graph holds MiB {held}; budget "
           f"clears so far {graphs.counts['budget_clears']}")
     lines: list = []
@@ -3421,8 +3638,9 @@ def listen_processes(d, db, songs, rounds: int = 5) -> dict:
 
 def oneshot_match(d, db, query, rank0, rounds: int = 2) -> dict:
     """A one-shot `match -d db query` process, what a user who matches
-    one file pays: its one key's first call warms, captures and replays
-    a graph, where the eager function ran once before the graphs.  The
+    one file pays: its one key's first call warms and captures a graph
+    and returns the warm-up run's output, where the eager function ran
+    once before the graphs.  The
     two in turns over `rounds`: process wall, the CLI's elapsed seconds
     and its dispatch stage (--json-metrics)."""
     smi = nvidia_smi_line()

@@ -1,7 +1,9 @@
 """The fused path's graph cache (audfprint_torch/utils/graphs.py) on the
 CPU, where no CUDA graph can be captured: RecordingGraph stands in for
-torch.cuda.CUDAGraph.  Its capture runs the function once and keeps the
-output as the static output; its replay runs the function again on the
+torch.cuda.CUDAGraph.  Its capture runs the function once, keeps the
+output as the static output and puts back every tensor the function was
+given (a real capture runs nothing, so a function that writes its state
+must leave it as it was); its replay runs the function again on the
 static input buffers and writes the static output in place, as a replay
 does on the card.  So the cache's own logic runs here: the key, staging
 into the static buffers, the clone after each replay, dropping graphs
@@ -44,18 +46,27 @@ COUNTERS = pipe.launch_counters()
 
 
 def _outputs(out) -> tuple:
+    if out is None:
+        return ()
     return out if isinstance(out, tuple) else (out,)
 
 
 class RecordingGraph:
     """A CPU stand-in for torch.cuda.CUDAGraph (see the module docstring).
-    A replay writes every static output in place (one tensor or a tuple
-    of them) and leaves the launch counters as they were: a real replay
-    runs no Python, and the cache adds the launches recorded at capture."""
+    Its recording run leaves every tensor the function was given (fn is a
+    functools.partial) as it found it.  A replay writes every static
+    output in place (one tensor, a tuple of them, or none) and leaves the
+    launch counters as they were: a real replay runs no Python, and the
+    cache adds the launches recorded at capture."""
 
     def __init__(self, fn):
         self.fn = fn
+        given = [a for a in getattr(fn, "args", ())
+                 if isinstance(a, torch.Tensor)]
+        saved = [a.clone() for a in given]
         self.out = fn()
+        for a, s in zip(given, saved):
+            a.copy_(s)
         self.replays = 0
 
     def replay(self):
@@ -294,7 +305,8 @@ def test_rows_through_cache_equal_direct_and_jax(kw, db, recorded):
 def test_replay_counts_its_launches(recorded):
     """A capture's wrapper counts become the graph's own: the warm-up
     launches count, the capture (which launches nothing) does not, and
-    every replay adds them once."""
+    every replay adds them once.  The first call returns the warm-up
+    run's output: three calls are one warm-up and two replays."""
     def fn(a, n, s, k):
         L.launches["pair_scan"] += 1
         return a.sum(dim=1) * k + s
@@ -304,7 +316,7 @@ def test_replay_counts_its_launches(recorded):
     before = L.launches["pair_scan"]
     outs = [cache((np.full((2, 4), v, np.float32), np.zeros(2, np.int32)),
                   (s,), (2.0,)) for v in (1, 2, 3)]
-    assert L.launches["pair_scan"] - before == 1 + 3
+    assert L.launches["pair_scan"] - before == 1 + 2
     assert [o.tolist() for o in outs] == [[11.0] * 2, [19.0] * 2,
                                           [27.0] * 2]
     assert cache.held_bytes == 2 * 4 * 4 + 2 * 4   # the static inputs

@@ -400,7 +400,9 @@ def test_fresh_listen_replays_first_request(db, recorded, tmp_path,
     with open(mj) as f:
         caps = json.load(f)["listen_graph_captures"]
     assert caps["serving"] == 0 and caps["warm"] >= 4 + 2 + 1
-    assert graphs.counts["replays"] - replays > caps["warm"]
+    # the warm-up's captures replay nothing (a key's first call returns
+    # its warm-up run's output); each served batch of two requests replays
+    assert graphs.counts["replays"] - replays >= len(paths) // 2
     monkeypatch.setattr(graphs, "captures", lambda device: False)
     assert cli.main(["match", "-d", dbp, *flags, *paths],
                     device="cpu") == 0
