@@ -11,7 +11,10 @@ through the two-stage path, so it never changes results.  On one CUDA
 device the fused function and the two-stage path's vote are each
 captured as a CUDA graph per shape key and replayed (utils/graphs.
 GraphCache, the counterpart of the JAX package's jitted executables
-_fused_match_graph and match_batch_packed).  The serving
+_fused_match_graph and match_batch_packed); so are their mesh
+counterparts on a mesh of logical shards of one card in one process
+(graphs.captures_mesh; JAX's jitted shard_map functions), while a mesh
+over several devices or processes runs them eagerly.  The serving
 modes ride the batched match: match_hashes_windowed (broadcast monitoring)
 and match_samples_sweep (playback-speed corrections); illustrate_match and
 sonify_match are host diagnostics on top of match_hashes.
@@ -72,6 +75,48 @@ def _two_stage_vote(qt, qh, qv, table, counts, hpi, hpi_plane, tcfg, mcfg,
     (B, max_returns, 7) rows."""
     return voting.match_batch_packed(table, counts, hpi, qt, qh, qv, tcfg,
                                      mcfg, core, hpi_plane)
+
+
+def _mesh_vote(qt, qh, qv, table, counts, hpi, hpi_plane, mesh, tcfg,
+               mcfg, core: str) -> torch.Tensor:
+    """The two-stage path's vote on a mesh, as its graphs capture it: the
+    RLE hit exchange (core "sorted") or the histogram core with its
+    partials summed over the shards ("hist") -> (B, max_returns, 7)
+    rows.  table, counts and hpi_plane are the lists of the shards'
+    tensors; B must be a multiple of the mesh size for "sorted"."""
+    from audfprint_torch.parallel import sharded
+
+    if core == "hist":
+        return sharded.sharded_match_packed_cached(mesh, tcfg, mcfg)(
+            table, counts, hpi, qt, qh, qv)
+    fn = sharded.sharded_match_rle_packed_cached(mesh, tcfg, mcfg,
+                                                 hpi_plane is not None)
+    plane = (hpi_plane,) if hpi_plane is not None else ()
+    return fn(table, counts, hpi, *plane, qt, qh, qv)
+
+
+def _mesh_fused_match(audio, lengths, table, counts, hpi, hpi_plane, mesh,
+                      pcfg, tcfg, mcfg, qcap: int) -> torch.Tensor:
+    """The fused fingerprint + match on a mesh (sharded.
+    sharded_fused_match_cached), as its graphs capture it; the rows and
+    readback row of _fused_match_graph.  B must be a multiple of the mesh
+    size."""
+    from audfprint_torch.parallel import sharded
+
+    fn = sharded.sharded_fused_match_cached(mesh, pcfg, tcfg, mcfg, qcap,
+                                            hpi_plane is not None)
+    plane = (hpi_plane,) if hpi_plane is not None else ()
+    return fn(table, counts, hpi, *plane, audio, lengths)
+
+
+def _pad_rows(arrays, n: int) -> tuple:
+    """Host arrays with their first axis padded by zeros to a multiple of
+    n (the mesh paths split the batch over the shards)."""
+    pad = -arrays[0].shape[0] % n
+    if not pad:
+        return tuple(arrays)
+    return tuple(np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+                 for a in arrays)
 
 
 def _shards_per_device(mesh) -> int:
@@ -143,12 +188,19 @@ class Matcher:
         self.ndev = ndev
         self._dev = None          # (weakref to ht, revision) -> device state
         self._fallback_dev = None
-        # the single-device captured graphs, one per shape key: the fused
-        # path's, and the two-stage path's vote
+        # the captured graphs, one per shape key: the fused path's and the
+        # two-stage path's vote on one device, and on a mesh that captures
+        # (graphs.captures_mesh: logical shards of this one device), whose
+        # keys carry the mesh
+        counters = pipe.launch_counters()
         self._graphs = graphs.GraphCache(_fused_match_graph, self.device,
-                                         pipe.launch_counters())
+                                         counters)
         self._votes = graphs.GraphCache(_two_stage_vote, self.device,
-                                        pipe.launch_counters())
+                                        counters)
+        self._mesh_graphs = graphs.GraphCache(_mesh_fused_match, self.device,
+                                              counters)
+        self._mesh_votes = graphs.GraphCache(_mesh_vote, self.device,
+                                             counters)
 
     # Device-memory budget for one voting call; None = derive from the
     # device on first use.  Set it to split batches on small devices.
@@ -192,8 +244,7 @@ class Matcher:
         if self._dev is None or self._dev[0]() is not ht \
                 or self._dev[1] != (rev, ndev):
             # the graphs read the old tensors: drop them before re-staging
-            self._graphs.clear()
-            self._votes.clear()
+            self._clear_graphs()
             ncap = _next_pow2(max(1, len(ht.names)), 256)
             hpi = np.zeros(ncap, np.int32)
             hpi[: len(ht.hashesperid)] = np.minimum(ht.hashesperid,
@@ -226,8 +277,12 @@ class Matcher:
         the next match stages anew."""
         self._dev = None
         self._fallback_dev = None
-        self._graphs.clear()
-        self._votes.clear()
+        self._clear_graphs()
+
+    def _clear_graphs(self):
+        for cache in (self._graphs, self._votes, self._mesh_graphs,
+                      self._mesh_votes):
+            cache.clear()
 
     # -- core -------------------------------------------------------------
 
@@ -315,11 +370,15 @@ class Matcher:
         # the sorted core everywhere: its memory is independent of maxtime
         # and query length, so the envelope only ever splits the batch; on
         # a mesh the same vote runs after the hit exchange.  force_core
-        # pins the histogram core (the equivalence reference).  One device
-        # replays the vote's captured graphs; the mesh and its fallback
-        # below run eagerly.
+        # pins the histogram core (the equivalence reference).  The vote
+        # replays its captured graphs on one device, on a mesh of logical
+        # shards of one device and on the mesh's fallback below; a mesh
+        # over several devices or processes runs it eagerly.
         core = self.force_core or "sorted"
-        votes = self._votes if mesh is None else None
+        if mesh is None:
+            votes = self._votes
+        else:
+            votes = self._mesh_votes if graphs.captures_mesh(mesh) else None
         if core not in ("sorted", "hist"):
             raise ValueError(f"unknown voting core {core!r}")
         if mesh is not None and core == "hist" and self._voting_bytes_per_row(
@@ -342,7 +401,7 @@ class Matcher:
                 table, counts, tcfg, hpi, hpi_plane = fb[2:]
             mesh = None
             core = "sorted"
-            votes = None
+            votes = self._votes
         if core == "hist":
             per_row = self._voting_bytes_per_row(tcfg, qt_cap, Q, mesh)
         else:
@@ -368,11 +427,13 @@ class Matcher:
                       hash_lists, Q: int, qt_cap: int, core: str = "sorted",
                       mesh=None, hpi_plane=None, votes=None,
                       need: int = 0) -> list:
-        """One sub-batch of query (t, hash) lists -> its rows.  With
-        `votes` (a GraphCache of _two_stage_vote) the vote replays the
-        graph of its key, (rows, Q, qt_cap, tcfg, mcfg, core, plane
-        present); `need` is its capture's byte estimate for the budget
-        rule (graphs.make_room).  Without, it runs eagerly."""
+        """One sub-batch of query (t, hash) lists -> its rows.  `votes`
+        (a GraphCache of _two_stage_vote, or of _mesh_vote on a mesh)
+        replays the graph of the vote's key, (rows, Q, qt_cap, [mesh,]
+        tcfg, mcfg, core, plane present), or on a CPU device runs it
+        directly; `need` is its capture's byte estimate for the budget
+        rule (graphs.make_room).  votes=None (a mesh over several devices
+        or processes) runs _mesh_vote eagerly on the host arrays."""
         B = len(hash_lists)
         tt = np.zeros((B, Q), np.int32)
         hh = np.zeros((B, Q), np.int32)
@@ -383,38 +444,24 @@ class Matcher:
             hh[b, : len(h)] = h[:, 1]
             vv[b, : len(h)] = True
         mcfg = self._mcfg(qt_cap, ncap)
+        inputs = (tt, hh, vv)
+        state = (table, counts, hpi, hpi_plane if core == "sorted" else None)
         if mesh is None:
-            dev = self.device
-            state = (table, counts, hpi,
-                     hpi_plane if core == "sorted" else None)
             static = (tcfg, mcfg, core)
-            if votes is None:
-                out = _two_stage_vote(
-                    *(torch.as_tensor(a, device=dev) for a in (tt, hh, vv)),
-                    *state, *static)
-            else:
-                graphs.make_room(
-                    dev, votes.need([((tt, hh, vv), state, static, need)]),
-                    self._budget_bytes())
-                out = votes((tt, hh, vv), state, static)
-        elif core == "sorted":
-            from audfprint_torch.parallel import sharded
-            # the RLE exchange splits the batch axis over the mesh: pad B
-            # to a multiple of ndev with empty rows, dropped below
-            pad = -B % mesh.size
-            if pad:
-                tt, hh, vv = (np.concatenate(
-                    [a, np.zeros((pad, Q), a.dtype)]) for a in (tt, hh, vv))
-            fn = sharded.sharded_match_rle_packed_cached(
-                mesh, tcfg, mcfg, hpi_plane is not None)
-            args = (table, counts, hpi) + (
-                (hpi_plane,) if hpi_plane is not None else ())
-            out = fn(*args, tt, hh, vv)[:B]
         else:
-            from audfprint_torch.parallel import sharded
-            out = sharded.sharded_match_packed_cached(mesh, tcfg, mcfg)(
-                table, counts, hpi, tt, hh, vv)
-        out = out.cpu().numpy()
+            static = (mesh, tcfg, mcfg, core)
+            if core == "sorted":
+                # the RLE exchange splits the batch axis over the mesh: pad
+                # B to a multiple of ndev with empty rows, dropped below
+                inputs = _pad_rows(inputs, mesh.size)
+        if votes is None:
+            out = _mesh_vote(*inputs, *state, *static)
+        else:
+            graphs.make_room(
+                votes.device, votes.need([(inputs, state, static, need)]),
+                self._budget_bytes())
+            out = votes(inputs, state, static)
+        out = out[:B].cpu().numpy()
         return [out[b, : int(out[b, :, 6].sum()), :6].astype(np.int64)
                 for b in range(B)]
 
@@ -482,11 +529,14 @@ class Matcher:
         On one device each group replays the captured graph of its key
         (rows, bucket length, int16 or float32 input, qcap, the configs,
         the hpi plane), capturing it on the key's first call after the
-        budget rule (graphs.make_room).  On a mesh
-        each group goes through sharded.sharded_fused_match_cached: every
-        shard fingerprints its slice of the batch, then the hit exchange
-        and the vote; same readback row, same rows as the two-stage mesh
-        path."""
+        budget rule (graphs.make_room).  On a mesh each group, its rows
+        padded to a multiple of the mesh size, goes through sharded.
+        sharded_fused_match_cached (_mesh_fused_match): every shard
+        fingerprints its slice of the batch, then the hit exchange and
+        the vote; same readback row, same rows as the two-stage mesh
+        path.  A mesh of logical shards of one device replays its graphs
+        as one device does, the key carrying the mesh; a mesh over
+        several devices or processes runs eagerly."""
         (table, counts, hpi, tcfg, ncap, mesh,
          hpi_plane) = self._device_state(ht)
         if self.force_core == "hist":
@@ -495,50 +545,47 @@ class Matcher:
         budget = self._budget_bytes()
         groups = analyzer.stage_groups(signals)
         state = (table, counts, hpi, hpi_plane)
-        qcaps, calls = [], []
-        for _idxs, batch, lens in groups:
+        if mesh is None:
+            cache, replays = self._graphs, graphs.captures(self.device)
+        else:
+            cache, replays = self._mesh_graphs, graphs.captures_mesh(mesh)
+        idxs_of, calls = [], []
+        for idxs, batch, lens in groups:
             # static query-hash cap per bucket: ~density unique hashes/s,
             # 1.5x + 64 headroom; an underestimate only costs a re-match
             dur = batch.shape[1] / float(analyzer.target_sr)
             qcap = self.fused_qcap or _next_pow2(
                 int(dur * analyzer.density * 1.5) + 64, 128)
-            qcaps.append(qcap)
-            calls.append(((batch, lens), state,
-                          (analyzer.config, tcfg, mcfg, qcap),
+            static = (analyzer.config, tcfg, mcfg, qcap)
+            if mesh is not None:
+                batch, lens = _pad_rows((batch, lens), mesh.size)
+                static = (mesh,) + static
+            idxs_of.append(idxs)
+            calls.append(((batch, lens), state, static,
                           self._sorted_bytes_per_row(tcfg, qcap, mesh)
                           * len(lens)))
-        if mesh is None and graphs.captures(self.device):
+        if replays:
             # each key's graph keeps its voting buffers in the shared
             # pool, which every group of that key reuses: the keys, each
             # once, must fit the budget; new keys that would not fit
             # beside what the caches hold clear them first
             # (graphs.make_room)
-            keys = {self._graphs.key(*c[:3]): c[3] for c in calls}
+            keys = {cache.key(*c[:3]): c[3] for c in calls}
             if sum(keys.values()) > budget:
                 return None
-            graphs.make_room(self.device, self._graphs.need(calls), budget)
+            graphs.make_room(cache.device, cache.need(calls), budget)
         elif sum(c[3] for c in calls) > budget:
             # every group is queued before any resolves, so their buffers
             # can be live together: budget the sum
             return None
         outs = []
-        for (idxs, batch, lens), qcap in zip(groups, qcaps):
-            if mesh is not None:
-                from audfprint_torch.parallel import sharded
-                pad = -batch.shape[0] % mesh.size
-                if pad:
-                    batch = np.concatenate(
-                        [batch, np.zeros((pad, batch.shape[1]), batch.dtype)])
-                    lens = np.concatenate([lens, np.zeros(pad, lens.dtype)])
-                fn = sharded.sharded_fused_match_cached(
-                    mesh, analyzer.config, tcfg, mcfg, qcap,
-                    hpi_plane is not None)
-                args = (table, counts, hpi) + (
-                    (hpi_plane,) if hpi_plane is not None else ())
-                out = fn(*args, batch, lens)
+        for idxs, (inputs, state, static, _nbytes) in zip(idxs_of, calls):
+            if mesh is not None and not replays:
+                # several devices or processes: the eager mesh function
+                # places the host arrays itself
+                out = cache.fn(*inputs, *state, *static)
             else:
-                out = self._graphs((batch, lens), state,
-                                   (analyzer.config, tcfg, mcfg, qcap))
+                out = cache(inputs, state, static)
             outs.append((idxs, out))
         return (len(signals), outs, signals)
 

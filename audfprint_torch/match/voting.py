@@ -609,8 +609,10 @@ def _select_candidates_hits_sharded(id_f, v_f, hashesperid,
     first_ok = _first_of(s) & (s < N) & (raw_h > 0)
     hpi_h = torch.clamp(hashesperid, min=1).to(torch.float32)[s_safe]
     wc = raw_h.to(torch.float32) / hpi_h
-    none = _pack2(torch.tensor(_F32_INF_BITS + 1, device=dev),
-                  torch.tensor(0, device=dev))
+    # filled on the device: an upload would wait for the stream and
+    # cannot be captured in a CUDA graph
+    none = torch.full((), (_F32_INF_BITS + 1) << 32, dtype=torch.long,
+                      device=dev)
     ckey = torch.where(first_ok, _pack2(
         _F32_INF_BITS - wc.view(torch.int32).long(), N - s), none)
     S = min(SD, H)

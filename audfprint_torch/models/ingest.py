@@ -19,7 +19,12 @@ mirror.
                reservoir store (sharded_fused_ingest_fn).  A cap overflow
                masks every write and returns ok = 0, and the caller
                replays the chunk through the replicated store, so the
-               result is the same either way.
+               result is the same either way.  On a mesh of logical
+               shards of one device in one process (graphs.captures_mesh)
+               the routed ingest, the store of host hashes and the
+               overflow replay are captured graphs too, the shards' tables
+               and counts their state; a mesh over several devices or
+               processes runs them eagerly.
 
 Bit-identical to the sequential host store by construction: the reservoir
 is keyed by (global bucket, position), the batch is cut into contiguous
@@ -117,6 +122,28 @@ def _route(hf, entry, vf, n_local: int, ndev: int, cap: int):
     return ops, ok
 
 
+def _routed_step(audio, lengths, ids, table, counts, mesh,
+                 pcfg: PipelineConfig, tcfg: DT.TableConfig,
+                 cap_override: int | None) -> torch.Tensor:
+    """sharded_fused_ingest_fn as its graph cache calls it -> the per-file
+    unique counts with the ok flag appended."""
+    return sharded_fused_ingest_fn(mesh, pcfg, tcfg, cap_override)(
+        table, counts, audio, lengths, ids)
+
+
+def _replay_step(audio, lengths, ids, table, counts, mesh,
+                 pcfg: PipelineConfig, tcfg: DT.TableConfig) -> torch.Tensor:
+    """The routing-cap overflow's way round, as its graph cache calls it:
+    every shard fingerprints its block again (sharded.dp_fingerprint_fn)
+    and the whole chunk's streams go through the replicated store ->
+    the per-file unique counts."""
+    from audfprint_torch.parallel import sharded
+
+    t, h, uniq, cnt = sharded.dp_fingerprint_fn(mesh, pcfg)(audio, lengths)
+    sharded.store_step(t, h, uniq, ids, table, counts, mesh, tcfg)
+    return cnt
+
+
 @functools.lru_cache(maxsize=32)
 def sharded_fused_ingest_fn(mesh, pcfg: PipelineConfig, tcfg: DT.TableConfig,
                             cap_override: int | None = None):
@@ -175,17 +202,29 @@ class DeviceIngest:
     (uploaded once, or born empty for `new`), every chunk is one fused
     fingerprint + store pass and one small counts fetch, and `finalize()`
     downloads the result into the host HashTable with a fetch sized by the
-    stored entries.  On a mesh, parallel.sharded.ShardedStore's replicated
-    store stays the path of precomputed files and of the overflow
-    replay."""
+    stored entries.  On a mesh, parallel.sharded's replicated store
+    stays the path of precomputed files and of the overflow replay.
 
-    def __init__(self, ht, analyzer, ndev: int = 1):
+    Each pass is a graph cache's call: the fused ingest (`_ingest`), the
+    store of host hashes (`_store`) and, on a mesh, the overflow replay
+    (`_replay`), one captured graph per shape key where the device (one
+    device, or a mesh of logical shards of one device in one process:
+    graphs.captures_mesh) captures, the table and counts (or the lists
+    of their shards) being the state.  A mesh over several devices or
+    processes runs the same functions eagerly.  cap_override forces the
+    mesh's routing cap (None = the cap with 2x headroom); it is part of
+    the routed ingest's key."""
+
+    def __init__(self, ht, analyzer, ndev: int = 1,
+                 cap_override: int | None = None):
         self.ht = ht
         self.analyzer = analyzer
         self.ndev = ndev
+        self.cap_override = cap_override
         self.cfg = DT.config_for(ht)
         self.device = analyzer.device
         fresh = not ht.counts.any()  # an empty table is born on the device
+        counters = pipe.launch_counters()
         if ndev > 1:
             from audfprint_torch.parallel import sharded
             self.mesh = sharded.make_mesh(
@@ -197,8 +236,13 @@ class DeviceIngest:
             else:
                 self.table, self.counts, _ = sharded.upload_sharded(
                     ht, self.mesh)
-            self._fn = sharded_fused_ingest_fn(self.mesh, analyzer.config,
-                                               self.cfg)
+            # several devices or processes: the eager functions
+            self._eager = not graphs.captures_mesh(self.mesh)
+            dev = self.mesh.devices[0]
+            self._ingest = graphs.GraphCache(_routed_step, dev, counters)
+            self._store = graphs.GraphCache(sharded.store_step, dev,
+                                            counters)
+            self._replay = graphs.GraphCache(_replay_step, dev, counters)
         else:
             self.mesh = None
             if fresh:
@@ -207,13 +251,22 @@ class DeviceIngest:
             else:
                 self.table, self.counts, _ = DT.table_to_device(
                     ht, self.device)
-        self._repl_store = None     # made on first use (mesh only)
+            self._eager = False
+            self._ingest = graphs.GraphCache(_ingest_step, self.device,
+                                             counters)
+            self._store = graphs.GraphCache(_store_step, self.device,
+                                            counters)
         self.replays = 0            # chunks replayed after a cap overflow
-        # one device: the fused ingest's and the host hashes' store's
-        # captured graphs, one per shape key; the state is (table, counts)
-        counters = pipe.launch_counters()
-        self._ingest = graphs.GraphCache(_ingest_step, self.device, counters)
-        self._store = graphs.GraphCache(_store_step, self.device, counters)
+
+    def _run(self, cache, inputs, static, nbytes: int):
+        """cache's function on `inputs` and the table: its graph's replay
+        after the budget rule (run directly on a CPU device), or on a
+        mesh over several devices or processes the eager function on the
+        host inputs."""
+        state = (self.table, self.counts)
+        if self._eager:
+            return cache.fn(*inputs, *state, *static)
+        return cache.budgeted(inputs, state, static, nbytes)
 
     # -- chunk path -------------------------------------------------------
 
@@ -286,25 +339,22 @@ class DeviceIngest:
         ids = np.zeros(len(lens), np.int32)
         for row, name in enumerate(names):
             ids[row] = self._assign_id(name, None)
-        if self.mesh is not None:
-            cnt_ok = self._fn(self.table, self.counts, batch, lens, ids)
-        else:
-            # the ok flag is a notion of the mesh's routing
-            pcfg = self.analyzer.config
-            cnt_ok = self._ingest.budgeted(
-                (batch, lens, ids), (self.table, self.counts),
-                (pcfg, self.cfg), _ingest_bytes(*batch.shape, pcfg))
+        pcfg = self.analyzer.config
+        # the ok flag is a notion of the mesh's routing
+        static = ((pcfg, self.cfg) if self.mesh is None else
+                  (self.mesh, pcfg, self.cfg, self.cap_override))
+        cnt_ok = self._run(self._ingest, (batch, lens, ids), static,
+                           _ingest_bytes(*batch.shape, pcfg))
         return ("wav", names, durs, cnt_ok, ids, batch, lens)
 
     def _dispatch_pre(self, rows):
         """Host (t, hash) arrays -> one store_batch pass (replicated
         streams on a mesh: they are on the host already)."""
         tt, hh, vv, ids = self._pad_hashes(rows)
-        if self.mesh is not None:
-            self._repl_store_fn()(self.table, self.counts, tt, hh, vv, ids)
-        else:
-            self._store.budgeted((tt, hh, vv, ids), (self.table, self.counts),
-                                 (self.cfg,), DT.store_bytes(hh.size))
+        static = ((self.cfg,) if self.mesh is None else
+                  (self.mesh, self.cfg))
+        self._run(self._store, (tt, hh, vv, ids), static,
+                  DT.store_bytes(hh.size))
         return ("pre", [n for n, _, _ in rows], [d for _, _, d in rows],
                 [len(h) for _, h, _ in rows], None, None, None)
 
@@ -323,12 +373,6 @@ class DeviceIngest:
             hh[b, : len(h)] = h[:, 1]
             vv[b, : len(h)] = True
         return tt, hh, vv, ids
-
-    def _repl_store_fn(self):
-        from audfprint_torch.parallel import sharded
-        if self._repl_store is None:
-            self._repl_store = sharded.sharded_store_fn(self.mesh, self.cfg)
-        return self._repl_store
 
     def consume_chunk(self, handle) -> list:
         """Resolve a dispatch_chunk handle -> ordered (name, nhash, dur)
@@ -353,15 +397,14 @@ class DeviceIngest:
         return out
 
     def _replay_overflow(self, batch, lens, ids):
-        """The routing-cap overflow's way round: every shard fingerprints
-        its block again (sharded.dp_fingerprint_fn), and the whole chunk's
-        streams go through the replicated store."""
-        from audfprint_torch.parallel import sharded
-
+        """The routing-cap overflow's way round (_replay_step): every shard
+        fingerprints its block again and the whole chunk's streams go
+        through the replicated store."""
         self.replays += 1
-        t, h, uniq, cnt = sharded.dp_fingerprint_fn(
-            self.mesh, self.analyzer.config)(batch, lens)
-        self._repl_store_fn()(self.table, self.counts, t, h, uniq, ids)
+        pcfg = self.analyzer.config
+        cnt = self._run(self._replay, (batch, lens, ids),
+                        (self.mesh, pcfg, self.cfg),
+                        _ingest_bytes(*batch.shape, pcfg))
         return cnt.cpu().numpy()
 
     # -- finalize ---------------------------------------------------------

@@ -25,11 +25,23 @@ given host copies (bool as uint8), staged here explicitly.
 
 `spmd` runs a per-shard body that calls its collectives from inside (the
 histogram vote's combiners): one thread per local shard, meeting at each
-collective.
+collective.  Each thread launches on the stream that is current for its
+device in the calling thread, so a CUDA graph captured around `spmd`
+records every shard's work (torch's current stream is per thread: a
+thread left on its default stream would launch outside the capture,
+which the global capture mode refuses).
+
+With one process and every shard on one device, the collectives are
+slices, same-device `.to()` and torch.cat, and nothing in them reads
+back to the host: a mesh of logical shards of one card can be captured
+as a whole (utils/graphs.captures_mesh).  Across devices or processes
+it runs eagerly: a capture lives on one device's streams, and gloo
+stages its collectives through the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -162,17 +174,29 @@ class Mesh:
         """body(cx, *[a[l] for a in shard_args]) for every local shard l,
         one thread each (inline for a single shard); `cx` is that shard's
         ShardContext, whose collectives meet the other shards'.  Returns
-        the bodies' results in shard order; the first failure is raised."""
+        the bodies' results in shard order; the first failure is raised.
+
+        A shard's thread runs under the caller's current stream of its
+        device, so under a capture every shard's launches and blocks join
+        the graph (the caching allocator files a block by its stream's
+        capture).  Between two meetings the threads' launches interleave
+        in any order on that stream; the shards' work there is
+        independent, and the stream orders each block's reuse."""
         meet = _Meeting(self)
         ctxs = [ShardContext(self, meet, l) for l in range(self.n_local)]
         if self.n_local == 1:
             return [body(ctxs[0], *[a[0] for a in shard_args])]
         results = [None] * self.n_local
         errors = [None] * self.n_local
+        streams = {d: torch.cuda.current_stream(d)
+                   for d in set(self.devices) if d.type == "cuda"}
 
         def run(l):
+            s = streams.get(self.devices[l])
             try:
-                results[l] = body(ctxs[l], *[a[l] for a in shard_args])
+                with (torch.cuda.stream(s) if s is not None
+                      else contextlib.nullcontext()):
+                    results[l] = body(ctxs[l], *[a[l] for a in shard_args])
             except BaseException as e:   # the others must not wait for us
                 errors[l] = e
                 meet.barrier.abort()

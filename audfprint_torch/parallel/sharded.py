@@ -17,6 +17,16 @@ hits all live on the shard that owns its bucket.
 
 Analysis is data parallel over the batch axis (dp_fingerprint_fn).
 
+Graphs: on a mesh of logical shards of one device in one process
+(graphs.captures_mesh) the Matcher, DeviceIngest and ShardedStore replay
+these functions as CUDA graphs per shape key (utils/graphs.GraphCache),
+the counterpart of jax.jit over shard_map: the shards' tables and counts
+are the graphs' state, written in place (donate_argnums), and the inputs
+arrive as the cache's static device buffers, so split_batch and
+Mesh.replicate only slice and place device tensors there.  The merge
+stays eager (sharded_merge_fn).  A mesh over several devices or
+processes runs every function eagerly.
+
 Where the JAX package wraps a per-device body in shard_map, each body
 here is a plain function of one shard's tensors and its bucket_lo, split
 at its collectives into phases; parallel/mesh.py has the collectives.  A
@@ -37,6 +47,7 @@ from audfprint_torch.match import voting
 from audfprint_torch.ops import pipeline as pipe
 from audfprint_torch.parallel import mesh as M
 from audfprint_torch.parallel.mesh import Mesh
+from audfprint_torch.utils import graphs
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
@@ -135,6 +146,14 @@ def sharded_store_fn(mesh: Mesh, cfg: DT.TableConfig):
         return table, counts
 
     return store
+
+
+def store_step(times, hashes, valid, ids, table, counts, mesh: Mesh,
+               cfg: DT.TableConfig) -> None:
+    """sharded_store_fn as a graph cache calls it (inputs, then the shards
+    it updates, then the static key): ShardedStore.store_chunk and
+    DeviceIngest's store of host hashes."""
+    sharded_store_fn(mesh, cfg)(table, counts, times, hashes, valid, ids)
 
 
 def _combiners(cx: M.ShardContext) -> dict:
@@ -282,7 +301,10 @@ def sharded_match_rle_packed_cached(mesh: Mesh, tcfg: DT.TableConfig,
 
 def split_batch(mesh: Mesh, *arrays) -> list:
     """Each array's rows cut into the global shards' contiguous blocks;
-    the local shards' blocks on their devices: [array][local shard]."""
+    the local shards' blocks on their devices: [array][local shard].  A
+    host array is uploaded here (the eager path); under a graph the
+    arrays are the cache's device buffers, and a block on its own device
+    is a slice of them."""
     out = []
     for a in arrays:
         a = torch.as_tensor(a)
@@ -343,13 +365,19 @@ class ShardedStore:
     `store_chunk()` replays per-file hash streams through the
     deterministic device reservoir (bit-identical to the sequential host
     store_vectorized of the same files), and `finalize()` downloads the
-    result into the host table, which stays the persistence mirror."""
+    result into the host table, which stays the persistence mirror.
+
+    On a mesh that captures (graphs.captures_mesh) each chunk replays the
+    store's CUDA graph of its (rows, length) key, the shards being its
+    state; elsewhere the store runs eagerly."""
 
     def __init__(self, ht, mesh: Mesh):
         self.ht = ht
         self.mesh = mesh
         self.table, self.counts, self.cfg = upload_sharded(ht, mesh)
-        self._store = sharded_store_fn(mesh, self.cfg)
+        self._graphs = (graphs.GraphCache(store_step, mesh.devices[0],
+                                          pipe.launch_counters())
+                        if graphs.captures_mesh(mesh) else None)
 
     def store_chunk(self, names_hashes: list) -> None:
         """Store [(name, (n, 2) int host hashes)] in order; ids come from
@@ -373,7 +401,13 @@ class ShardedStore:
             tt[b, : len(h)] = h[:, 0]
             hh[b, : len(h)] = h[:, 1]
             vv[b, : len(h)] = True
-        self._store(self.table, self.counts, tt, hh, vv, ids)
+        if self._graphs is None:
+            store_step(tt, hh, vv, ids, self.table, self.counts, self.mesh,
+                       self.cfg)
+        else:
+            self._graphs.budgeted((tt, hh, vv, ids), (self.table, self.counts),
+                                  (self.mesh, self.cfg),
+                                  DT.store_bytes(hh.size))
 
     def finalize(self) -> None:
         """Download the device state into the host table."""
@@ -408,7 +442,12 @@ def sharded_merge_fn(mesh: Mesh, cfg: DT.TableConfig):
     """Merge as resharding: replay another table's stored entries into
     the sharded table.  Returns fn(table, counts, hashes (N,), entries
     (N,), valid (N,)) -> (table, counts), the shards updated in place.
-    The entries already carry the id offset (entry_streams)."""
+    The entries already carry the id offset (entry_streams).
+
+    Eager on every mesh, where the JAX package jits it: it runs once per
+    merged source, on a stream whose length is that source's entry
+    count, and the CLI re-stages the counts from the host after each
+    source, so a graph would be captured for one replay and dropped."""
     los = _bucket_lo(mesh, buckets_per_shard(mesh, cfg))
 
     def merge(table, counts, h, e, v):

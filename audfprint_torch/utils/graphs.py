@@ -51,6 +51,12 @@ static inputs of every cache on the device.  The budget rule
 caches hold clears every cache on the device, pool included, before it
 is captured; `counts["budget_clears"]` counts those clears.
 
+Meshes: a mesh of logical shards on one device in one process
+(captures_mesh) is captured like one device, its shards' tables and
+counts (lists of tensors) being the state: the counterpart of the JAX
+package's jitted shard_map functions.  A mesh over several devices or
+processes runs eagerly.
+
 No fallback: on a CUDA device a failed capture or replay raises.  A CPU
 device, which a caller asks for by name, captures nothing and runs the
 function directly.
@@ -75,6 +81,17 @@ def captures(device: torch.device) -> bool:
     """Whether calls on `device` replay captured graphs: every CUDA device
     does; a CPU device runs the function directly."""
     return device.type == "cuda"
+
+
+def captures_mesh(mesh) -> bool:
+    """Whether calls on `mesh` (parallel/mesh.Mesh) replay captured graphs:
+    one process whose local shards all sit on one device that captures.
+    A capture records one device's streams, and a mesh that spans
+    processes stages its collectives through torch.distributed (gloo
+    through the host), so a mesh over several devices or processes runs
+    its functions eagerly."""
+    return (mesh.nproc == 1 and len(set(mesh.devices)) == 1
+            and captures(mesh.devices[0]))
 
 
 def budget_bytes(device: torch.device) -> int:

@@ -141,10 +141,21 @@ Phases (any failure exits non-zero before the result line):
      store, again with a routing cap that forces the overflow replay;
      sharded_merge_fn equals HashTable.merge; dp_fingerprint_fn equals
      fingerprint_batch; the config-2 match batch timed with and without
-     the plane.  Then a process boundary: two processes of two shards each
+     the plane.  Then the mesh's CUDA graphs (mesh_graphs), eager against
+     replayed in turns: the two-stage mesh vote (RLE, plane off and on;
+     hist), the fused mesh match, the routed ingest, its overflow replay
+     and ShardedStore, each replay's rows or table equal to the eager
+     run's and one device's (or the host store's); one fused-mesh and
+     one routed-ingest replay run K1, K2 and K3 once per shard
+     (torch.profiler and the counts); each kind's host dispatch of one
+     call, the batch and ingest rates, each mesh key's capture seconds
+     and MiB.  Then a process boundary: two processes of two shards each
      over gloo, both on the card, store 300 tracks' hashes and match 16
      queries; their table and rows equal the single-device ones.  Phase 9
      also runs new / add / match / merge with --ndev 4 against --ndev 1
+     (`new` and `match` with --ndev 4 replaying graphs, --json-metrics),
+     and a fresh `match --listen --ndev 4` process after `warmup --ndev
+     4` that captures nothing after its first line
 
  16. the JAX package's behavioural contract (its test_compat_surface,
      test_edge_cases, test_fuzz_compat and test_accuracy), run right after
@@ -1893,8 +1904,7 @@ def phase_sharded(torch, rec, ctx, dev, ndev: int = 4, chunk: int = 256,
     from audfprint_torch.index.hash_table import HashTable
     from audfprint_torch.match.matcher import Matcher
     from audfprint_torch.models.analyzer import Analyzer
-    from audfprint_torch.models.ingest import (DeviceIngest,
-                                               sharded_fused_ingest_fn)
+    from audfprint_torch.models.ingest import DeviceIngest
     from audfprint_torch.ops import pipeline as pipe
     from audfprint_torch.parallel import sharded
 
@@ -2016,10 +2026,7 @@ def phase_sharded(torch, rec, ctx, dev, ndev: int = 4, chunk: int = 256,
     # ---- the routed ingest, and once more through the overflow replay
     def ingest_all(cap=None):
         h = HashTable()
-        ing = DeviceIngest(h, Analyzer(device=dev), ndev)
-        if cap is not None:
-            ing._fn = sharded_fused_ingest_fn(ing.mesh, ing.analyzer.config,
-                                              ing.cfg, cap_override=cap)
+        ing = DeviceIngest(h, Analyzer(device=dev), ndev, cap_override=cap)
         for i in range(0, len(tracks), chunk):
             ing.consume_chunk(ing.dispatch_chunk(
                 [(n, "wav", x) for n, x in zip(names[i: i + chunk],
@@ -2086,6 +2093,8 @@ def phase_sharded(torch, rec, ctx, dev, ndev: int = 4, chunk: int = 256,
            f"; {chunk} x 30 s tracks in {ndev} blocks, equal to one "
            f"fingerprint_batch bit for bit")
 
+    out.update(mesh_graphs(torch, ctx, dev, ndev, chunk, replay_cap))
+
     launches = _counts()
     print(f"sharded path: launches {launches}")
     require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
@@ -2093,6 +2102,295 @@ def phase_sharded(torch, rec, ctx, dev, ndev: int = 4, chunk: int = 256,
             f"a kernel was not launched on the sharded path: {launches}")
     rec["_paths"]["sharded"] = launches
     return {"sharded": out}
+
+
+def _key_mib(cache) -> dict:
+    """{key: [capture s, MiB held]} of a graph cache, keyed by its inputs'
+    shapes."""
+    cap = cache.capture_seconds()
+    return {" ".join("x".join(map(str, sh)) for sh, _dt in k[0]):
+            [round(cap[k], 4), round(b / 2**20, 1)]
+            for k, b in cache.held_by_key().items()}
+
+
+def _cuda_top(torch, fn, n: int = 6) -> list:
+    """The n kernel names with the most device time in one fn() under
+    torch.profiler: [(name, events, device ms)]."""
+    import torch.profiler as tp
+
+    with tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                tp.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c, t = by.get(e.name, (0, 0.0))
+            by[e.name] = (c + 1, t + e.device_time / 1e3)
+    top = sorted(by.items(), key=lambda kv: -kv[1][1])[:n]
+    return [(name[:48], c, round(t, 3)) for name, (c, t) in top]
+
+
+def _launch_delta(before: dict) -> dict:
+    now = _counts()
+    return {k: now[k] - before.get(k, 0) for k in GRAPH_KERNELS}
+
+
+def mesh_graphs(torch, ctx, dev, ndev: int, chunk: int,
+                replay_cap: int) -> dict:
+    """The sharded paths as CUDA graphs on `ndev` logical shards of the
+    card, eager against replayed in turns: the two-stage mesh vote (RLE
+    exchange, plane off and on; hist core), the fused mesh match, the
+    routed ingest, its overflow replay and ShardedStore.  Gates: every
+    replay's rows or table bit-equal to the eager run's and to one
+    device's (or the host store's); one fused-mesh replay and one
+    routed-ingest replay run K1, K2 and K3 once per shard (torch.profiler
+    kernel events, and the launch counts a replay adds).  Reports each
+    kind's host dispatch of one call (median of 30), the batch and ingest
+    rates, and each mesh key's capture seconds and MiB."""
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.match import matcher as M
+    from audfprint_torch.models.analyzer import Analyzer
+    from audfprint_torch.models.ingest import DeviceIngest
+    from audfprint_torch.parallel import sharded
+    from audfprint_torch.utils import graphs
+
+    smi = nvidia_smi_line()
+    ht, an, tracks = ctx["ht"], ctx["an"], ctx["tracks"]
+    hashes, queries, qh = ctx["hashes"], ctx["queries"], ctx["qhashes"]
+    names = [f"track{i}" for i in range(len(tracks))]
+    out: dict = {"mesh_dispatch_ms": {}, "mesh_keys": {}}
+    mode_ctx = {"eager": eager_graphs, "replay": contextlib.nullcontext}
+
+    def turns(fn, rounds):
+        """fn(mode) for eager and replay in turns -> {mode: [s, ...]},
+        {mode: last result}."""
+        walls = {m: [] for m in mode_ctx}
+        last = {}
+        for _r in range(rounds):
+            for mode, cm in mode_ctx.items():
+                with cm():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    last[mode] = fn(mode)
+                    torch.cuda.synchronize()
+                    walls[mode].append(time.perf_counter() - t0)
+        return walls, last
+
+    one = M.Matcher(device=dev, ndev=1, verbose=0)
+    ref = one.match_hashes_batch(ht, qh)
+    ref_fused = one.match_samples_fused(an, ht, queries)
+    require(ref_fused is not None, "the one-device fused path was not "
+                                   "eligible")
+    del one
+
+    # ---- the two-stage mesh vote: RLE exchange (plane off, on), hist
+    for name, core, plane in (("rle", "sorted", False),
+                              ("rle, plane", "sorted", True),
+                              ("hist", "hist", False)):
+        m = M.Matcher(device=dev, ndev=ndev, verbose=0)
+        m.force_core = "hist" if core == "hist" else None
+        m.use_hpi_plane = plane or None
+        m.match_hashes_batch(ht, qh)                       # capture
+        require(graphs.captures_mesh(m._device_state(ht)[5])
+                and m._mesh_votes.keys(),
+                f"the {name} mesh vote captured no graph")
+
+        def batch(mode, m=m, name=name):
+            rows = m.match_hashes_batch(ht, qh)
+            bad = _rows_differing(rows, ref)
+            require(not bad, f"the {name} mesh vote ({mode}) differs from "
+                             f"one device: queries {bad[:8]}")
+            return rows
+
+        walls, _last = turns(batch, 3)
+        (table, counts, hpi, tcfg, ncap, mesh, pl) = m._device_state(ht)
+        Q = M._next_pow2(len(qh[0]), 128)
+        qt_cap = M._next_pow2(int(qh[0][:, 0].max()) + 1, M._QT_FLOOR)
+        inputs = padded_queries(qh[:1], Q)
+        if core == "sorted":
+            inputs = M._pad_rows(inputs, ndev)
+        state = (table, counts, hpi, pl if core == "sorted" else None)
+        static = (mesh, tcfg, m._mcfg(qt_cap, ncap), core)
+        m._mesh_votes(inputs, state, static)                # capture
+        require(torch.equal(m._mesh_votes(inputs, state, static),
+                            M._mesh_vote(*inputs, *state, *static)),
+                f"the {name} mesh vote's replay differs from its eager "
+                "function")
+        med = _in_turns(torch, {
+            "eager": lambda: M._mesh_vote(*inputs, *state, *static),
+            "replay": lambda: m._mesh_votes(inputs, state, static)},
+            rounds=3)
+        out["mesh_dispatch_ms"][f"vote {name}"] = med
+        out["mesh_keys"][f"vote {name}"] = _key_mib(m._mesh_votes)
+        out[f"mesh_vote_{name}_ms"] = {k: [round(1e3 * w, 3) for w in v]
+                                       for k, v in walls.items()}
+        print(f"mesh graphs [{smi}] two-stage vote, {name}, {ndev} "
+              f"shards: 64-query batch ms by round, eager "
+              f"{out[f'mesh_vote_{name}_ms']['eager']}, replay "
+              f"{out[f'mesh_vote_{name}_ms']['replay']}; rows equal one "
+              f"device's both ways; one 1-query vote's host dispatch ms "
+              f"(median of 30, eager / replay) {med['eager']:.3f} / "
+              f"{med['replay']:.3f}; keys [capture s, MiB] "
+              f"{out['mesh_keys'][f'vote {name}']}")
+        del m
+
+    # ---- the fused mesh match
+    m = M.Matcher(device=dev, ndev=ndev, verbose=0)
+    m.match_samples_fused(an, ht, queries)                 # capture
+
+    def fused(mode):
+        got = m.match_samples_fused(an, ht, queries)
+        bad = _rows_differing(got[0], ref_fused[0])
+        require(not bad and got[1] == ref_fused[1],
+                f"the fused mesh match ({mode}) differs from one device: "
+                f"queries {bad[:8]}")
+        return got
+
+    walls, _last = turns(fused, 3)
+    (table, counts, hpi, tcfg, ncap, mesh, pl) = m._device_state(ht)
+    state = (table, counts, hpi, pl)
+    _i, b1, l1 = an.stage_groups([to_pcm(queries[0])])[0]
+    b1, l1 = M._pad_rows((b1, l1), ndev)
+    qcap = M._next_pow2(int(b1.shape[1] / an.target_sr * an.density * 1.5)
+                        + 64, 128)
+    static = (mesh, an.config, tcfg, m._mcfg(M._QT_FLOOR, ncap), qcap)
+    m._mesh_graphs((b1, l1), state, static)                # capture
+
+    def replay1():
+        return m._mesh_graphs((b1, l1), state, static)
+
+    def eager1():
+        return M._mesh_fused_match(b1, l1, *state, *static)
+
+    require(torch.equal(replay1(), eager1()),
+            "the fused mesh match's replay differs from its eager function")
+    before = _counts()
+    replay1()
+    torch.cuda.synchronize()
+    counted = _launch_delta(before)
+    _n, _ms, seen = _cuda_events(torch, replay1)
+    require(all(seen[k] == ndev and counted[k] == ndev
+                for k in GRAPH_KERNELS),
+            f"one fused-mesh replay ran the kernels {seen} times (counted "
+            f"{counted}), not {ndev} each")
+    med = _in_turns(torch, {"eager": eager1, "replay": replay1}, rounds=3)
+    ev = {name: _cuda_events(torch, fn)[:2]
+          for name, fn in (("eager", eager1), ("replay", replay1))}
+    out["mesh_fused_top_kernels"] = _cuda_top(torch, replay1)
+    out["mesh_dispatch_ms"]["fused"] = med
+    out["mesh_keys"]["fused"] = _key_mib(m._mesh_graphs)
+    out["mesh_fused_ms"] = {k: [round(1e3 * w, 3) for w in v]
+                            for k, v in walls.items()}
+    print(f"mesh graphs [{smi}] fused match, {ndev} shards: 64 x 10 s "
+          f"queries, ms by round, eager {out['mesh_fused_ms']['eager']}, "
+          f"replay {out['mesh_fused_ms']['replay']}; rows equal one "
+          f"device's both ways; one replay of a 1 x 10 s int16 query ran "
+          f"{seen} (profiler; counted {counted}); its host dispatch ms "
+          f"(median of 30, eager / replay) {med['eager']:.3f} / "
+          f"{med['replay']:.3f}, device events {ev['eager'][0]} / "
+          f"{ev['replay'][0]}, device busy ms {ev['eager'][1]:.3f} / "
+          f"{ev['replay'][1]:.3f}; keys [capture s, MiB] "
+          f"{out['mesh_keys']['fused']}; the replay's kernels with the most "
+          f"device time (name, events, ms) {out['mesh_fused_top_kernels']}")
+    del m
+
+    # ---- the routed ingest, and its overflow replay
+    audio = sum(len(x) for x in tracks) / SR
+
+    def ingest(mode, cap=None):
+        h = HashTable()
+        ing = DeviceIngest(h, Analyzer(device=dev), ndev, cap_override=cap)
+        for i in range(0, len(tracks), chunk):
+            ing.consume_chunk(ing.dispatch_chunk(
+                [(n, "wav", x) for n, x in zip(names[i: i + chunk],
+                                               tracks[i: i + chunk])],
+                print))
+        ing.finalize()
+        require(_tables_equal(h, ht) and (ing.replays > 0) == (cap is not
+                                                               None),
+                f"the routed ingest ({mode}, cap {cap}) differs from the "
+                f"host store (overflow replays {ing.replays})")
+        return ing
+
+    walls, last = turns(ingest, 2)
+    ing = last["replay"]
+    out["mesh_ingest_audio_s_per_s"] = {
+        k: [round(audio / w, 1) for w in v] for k, v in walls.items()}
+    out["mesh_keys"]["routed ingest"] = _key_mib(ing._ingest)
+    ing_t = DeviceIngest(HashTable(), Analyzer(device=dev), ndev)
+    batch, lens = ing_t._stage_chunk(tracks[:chunk])
+    ids = np.arange(len(lens), dtype=np.int32)
+    st_i = (ing_t.table, ing_t.counts)
+    static = (ing_t.mesh, an.config, ing_t.cfg, None)
+    ing_t._ingest((batch, lens, ids), st_i, static)        # capture
+
+    def ing_replay():
+        return ing_t._ingest((batch, lens, ids), st_i, static)
+
+    def ing_eager():
+        return ing_t._ingest.fn(batch, lens, ids, *st_i, *static)
+
+    before = _counts()
+    ing_replay()
+    torch.cuda.synchronize()
+    counted = _launch_delta(before)
+    _n, _ms, seen = _cuda_events(torch, ing_replay)
+    require(all(seen[k] == ndev and counted[k] == ndev
+                for k in GRAPH_KERNELS),
+            f"one routed-ingest replay ran the kernels {seen} times "
+            f"(counted {counted}), not {ndev} each")
+    med = _in_turns(torch, {"eager": ing_eager, "replay": ing_replay},
+                    rounds=3, calls=3)
+    out["mesh_dispatch_ms"]["routed ingest"] = med
+    del ing_t
+    print(f"mesh graphs [{smi}] routed ingest, {ndev} shards, "
+          f"{len(tracks)} x 30 s in chunks of {chunk}: audio-s/s by round "
+          f"{out['mesh_ingest_audio_s_per_s']}; tables equal the host "
+          f"store's both ways; one replay ran {seen} (profiler; counted "
+          f"{counted}); one chunk's host dispatch ms (median of 9, eager / "
+          f"replay) {med['eager']:.3f} / {med['replay']:.3f}; keys "
+          f"[capture s, MiB] {out['mesh_keys']['routed ingest']}")
+
+    walls, last = turns(lambda mode: ingest(mode, replay_cap), 1)
+    ing = last["replay"]
+    out["mesh_keys"]["overflow replay"] = _key_mib(ing._replay)
+    out["mesh_overflow_s"] = {k: [round(w, 3) for w in v]
+                              for k, v in walls.items()}
+    print(f"mesh graphs [{smi}] routed ingest at routing cap {replay_cap}, "
+          f"every chunk replayed through the dp fingerprint and the "
+          f"replicated store: s eager / replay "
+          f"{out['mesh_overflow_s']['eager']} / "
+          f"{out['mesh_overflow_s']['replay']}; tables equal the host "
+          f"store's; overflow key [capture s, MiB] "
+          f"{out['mesh_keys']['overflow replay']}")
+    del ing, last
+
+    # ---- ShardedStore
+    def store(mode):
+        h = HashTable()
+        st = sharded.ShardedStore(h, sharded.make_mesh(ndev, [dev]))
+        for i in range(0, len(hashes), chunk):
+            st.store_chunk(list(zip(names[i: i + chunk],
+                                    hashes[i: i + chunk])))
+        st.finalize()
+        require(_tables_equal(h, ht), f"ShardedStore ({mode}) differs from "
+                                      f"the host store")
+        return st
+
+    walls, last = turns(store, 1)
+    out["mesh_keys"]["store"] = _key_mib(last["replay"]._graphs)
+    out["mesh_store_s"] = {k: [round(w, 3) for w in v]
+                           for k, v in walls.items()}
+    print(f"mesh graphs [{smi}] ShardedStore, {len(hashes)} tracks' "
+          f"hashes: s eager / replay {out['mesh_store_s']['eager']} / "
+          f"{out['mesh_store_s']['replay']}; tables equal the host store's; "
+          f"keys [capture s, MiB] {out['mesh_keys']['store']}")
+    print(f"mesh graphs [{smi}]: host dispatch ms of one call, eager / "
+          f"replay: " + "; ".join(
+              f"{k} {v['eager']:.3f} / {v['replay']:.3f}"
+              for k, v in out["mesh_dispatch_ms"].items()))
+    return out
 
 
 def _gloo_rank(argv: list) -> int:
@@ -3497,7 +3795,8 @@ _NOWARM_MAIN = ("import runpy; from audfprint_torch import cli; "
                 "alter_sys=True)")
 
 
-def _listen_process(db, reqs, missing, mj, mode, timeout=300) -> dict:
+def _listen_process(db, reqs, missing, mj, mode, timeout=300,
+                    extra=()) -> dict:
     """One `match --listen -d db --json-metrics mj` process over a pipe.
     The missing path goes first: its error line says the loop has read
     its first line (the warm-up is behind it) without any device work.
@@ -3518,7 +3817,8 @@ def _listen_process(db, reqs, missing, mj, mode, timeout=300) -> dict:
     err = open(mj + ".stderr", "w+")
     proc = subprocess.Popen(
         [sys.executable, *main, "match", "-d", db, "--listen",
-         "--json-metrics", mj], cwd=ROOT, env=env, stdin=subprocess.PIPE,
+         "--json-metrics", mj, *extra], cwd=ROOT, env=env,
+        stdin=subprocess.PIPE,
         stdout=subprocess.PIPE, stderr=err, text=True, bufsize=1)
 
     def errors() -> str:
@@ -3577,7 +3877,9 @@ def listen_processes(d, db, songs, rounds: int = 5) -> dict:
     batch do_match's over the same paths.  Times each key's first request
     and the p50 and max of the 16, the CLI as it is ("graphs") in turns
     with each key captured on its first request ("first-capture") over
-    `rounds` rounds, and with the graphs off ("eager") in the first."""
+    `rounds` rounds, and with the graphs off ("eager") in the first; then
+    one round on 4 logical shards (`warmup --ndev 4`, a fresh `match
+    --listen --ndev 4`) under the same gates."""
     from audfprint_torch import cli
     from audfprint_torch.index.hash_table import HashTable
     from audfprint_torch.utils.audio import audio_write_wav
@@ -3624,6 +3926,29 @@ def listen_processes(d, db, songs, rounds: int = 5) -> dict:
                 "warm_s": round(sess["metrics"]["stage_seconds"].get(
                     "warm", 0.0), 3),
                 "captures": caps})
+    # one round on 4 logical shards: `warmup --ndev 4`, then a fresh
+    # `match --listen --ndev 4` process, whose mesh keys are warm before
+    # its first line
+    nd = ["--ndev", "4"]
+    out = _cli(["warmup", "-d", db, *nd])
+    require("warmed 10 s bucket" in out, f"warmup --ndev 4: {out}")
+    mj = os.path.join(d, "listen_proc_ndev4.json")
+    sess = _listen_process(db, reqs, missing, mj, "graphs", extra=nd)
+    caps = sess["metrics"].get("listen_graph_captures")
+    require(sess["lines"] == batch,
+            f"listen process (--ndev 4): lines differ from batch mode: "
+            f"{sess['lines'][:2]} / {batch[:2]}")
+    require(caps["serving"] == 0 and caps["warm"] > 0,
+            f"the --ndev 4 listen process captured after its first line: "
+            f"{caps}")
+    lat = sess["lat_ms"]
+    res["graphs, --ndev 4"] = [{
+        "first_5s_ms": round(lat[0], 3), "first_10s_ms": round(lat[1], 3),
+        "p50_ms": round(float(np.median(lat)), 3),
+        "max_ms": round(max(lat), 3), "ready_s": round(sess["ready_s"], 3),
+        "warm_s": round(sess["metrics"]["stage_seconds"].get("warm", 0.0),
+                        3),
+        "captures": caps, "graphs": sess["metrics"].get("graphs")}]
     print(f"listen processes [{smi}]: `warmup -d db` ({t_warm:.1f} s of "
           f"wall), then fresh `match --listen -d db` processes, 16 requests "
           f"(5 s / 10 s in turn), lines equal batch mode; by round:")
@@ -3667,27 +3992,36 @@ def oneshot_match(d, db, query, rank0, rounds: int = 2) -> dict:
 def phase_cli_ndev(d, wavs, query, rank0, ndev: int = 4) -> dict:
     """new, add, match and merge with --ndev 4 (four logical shards of the
     card) as subprocesses: their lines and saved databases equal the
-    --ndev 1 ones, and `new --ndev 4` launches the kernels."""
+    --ndev 1 ones, `new --ndev 4` launches the kernels, and `new` (a WAV a
+    chunk) and `match` (the query twice, a query a batch) with --ndev 4
+    replay their mesh keys' graphs (--json-metrics)."""
     from audfprint_torch.index.hash_table import HashTable
 
     def lines(text, n):
         return [ln.replace(f"_n{n}.", "_n.") for ln in text.splitlines()
                 if not ln.startswith("Processed ")]
 
-    outs, launches = {}, {}
+    outs, launches, graph_counts = {}, {}, {}
 
     def run_ndev(n):
         nd = ["--ndev", str(n)]
         db, dbb = (os.path.join(d, f"{k}_n{n}.pklz") for k in ("nd", "ndb"))
         metrics = os.path.join(d, f"nd_metrics{n}.json")
-        o = _cli(["new", "-d", db, *nd, "--json-metrics", metrics, *wavs[:2]])
+        mmatch = os.path.join(d, f"nd_match_metrics{n}.json")
+        o = _cli(["new", "-d", db, *nd, "--batchsize", "1", "--json-metrics",
+                  metrics, *wavs[:2]])
         with open(metrics) as f:
-            launches[n] = json.load(f)["kernel_launches"]
+            m = json.load(f)
+        launches[n] = m["kernel_launches"]
         o += _cli(["add", "-d", db, *nd, wavs[2]])
         o += _cli(["new", "-d", dbb, *nd, wavs[1], wavs[0]])
         o += _cli(["merge", "-d", db, *nd, dbb])
         o += _cli(["match", "-d", db, *nd, "-R", "-X", "-x", "3", query])
-        o += _cli(["match", "-d", db, *nd, query])
+        o += _cli(["match", "-d", db, *nd, "--batchsize", "1",
+                   "--json-metrics", mmatch, query, query])
+        with open(mmatch) as f:
+            graph_counts[n] = {"new": m["graphs"],
+                               "match": json.load(f)["graphs"]}
         outs[n] = lines(o, n)
 
     # the two runs side by side: each subprocess spends most of its
@@ -3716,10 +4050,17 @@ def phase_cli_ndev(d, wavs, query, rank0, ndev: int = 4) -> dict:
             and launches[ndev].get("hpf_scan", 0) > 0
             and launches[ndev].get("pair_scan", 0) > 0,
             f"new --ndev {ndev} did not launch the kernels: {launches}")
+    require(all(c["captures"] > 0 and c["replays"] > 0
+                for c in graph_counts[ndev].values()),
+            f"new / match --ndev {ndev} replayed no graph: "
+            f"{graph_counts[ndev]}")
     print(f"CLI --ndev {ndev}: lines and both saved databases equal --ndev "
           f"1's; new --ndev {ndev} launches {launches[ndev]} (--ndev 1: "
-          f"{launches[1]}); 12 subprocesses in {wall:.1f} s")
-    return {"cli_ndev_same": True, "cli_ndev_launches": launches[ndev]}
+          f"{launches[1]}); graphs (--json-metrics) --ndev {ndev} "
+          f"{graph_counts[ndev]}, --ndev 1 {graph_counts[1]}; 12 "
+          f"subprocesses in {wall:.1f} s")
+    return {"cli_ndev_same": True, "cli_ndev_launches": launches[ndev],
+            "cli_ndev_graphs": graph_counts[ndev]}
 
 
 def phase_cli_serving(d, db, wavs, songs, query, q, rank0) -> dict:

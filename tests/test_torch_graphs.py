@@ -54,14 +54,16 @@ def _outputs(out) -> tuple:
 class RecordingGraph:
     """A CPU stand-in for torch.cuda.CUDAGraph (see the module docstring).
     Its recording run leaves every tensor the function was given (fn is a
-    functools.partial) as it found it.  A replay writes every static
-    output in place (one tensor, a tuple of them, or none) and leaves the
-    launch counters as they were: a real replay runs no Python, and the
-    cache adds the launches recorded at capture."""
+    functools.partial), a mesh's lists of shard tensors included, as it
+    found it.  A replay writes every static output in place (one tensor,
+    a tuple of them, or none) and leaves the launch counters as they
+    were: a real replay runs no Python, and the cache adds the launches
+    recorded at capture."""
 
     def __init__(self, fn):
         self.fn = fn
-        given = [a for a in getattr(fn, "args", ())
+        given = [a for arg in getattr(fn, "args", ())
+                 for a in (arg if isinstance(arg, (list, tuple)) else (arg,))
                  if isinstance(a, torch.Tensor)]
         saved = [a.clone() for a in given]
         self.out = fn()

@@ -228,9 +228,7 @@ def test_fused_ingest_overflow_replays_identically():
     names = [f"o{i}.wav" for i in range(4)]
     want = _host_reference(an, names, sigs, **SMALL)
     ht = HashTable(**SMALL)
-    ing = ING.DeviceIngest(ht, an, 8)
-    ing._fn = ING.sharded_fused_ingest_fn(ing.mesh, an.config, ing.cfg,
-                                          cap_override=4)
+    ing = ING.DeviceIngest(ht, an, 8, cap_override=4)
     handle = ing.dispatch_chunk([(n, "wav", d) for n, d in zip(names, sigs)],
                                 report=print)
     assert int(handle[0][3][-1]) == 0, "cap=4 must overflow"
