@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from audfprint_torch import params as P
+from audfprint_torch.ops import scan as SC
 
 
 class TableConfig(NamedTuple):
@@ -244,7 +245,7 @@ def store_packed_local(table: torch.Tensor, counts: torch.Tensor,
     idx = torch.arange(n, device=dev)
     first = torch.ones(n, dtype=torch.bool, device=dev)
     first[1:] = hs[1:] != hs[:-1]
-    run_start = torch.cummax(torch.where(first, idx, 0), dim=0).values
+    run_start = SC.cummax(torch.where(first, idx, 0))
     rank = idx - run_start
     pos = counts.to(torch.int64)[torch.clamp(hs, max=n_local - 1)] + rank
     slot = torch.where(

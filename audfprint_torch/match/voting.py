@@ -18,8 +18,10 @@ Where the JAX core runs multi-key `lax.sort`s and `associative_scan`s,
 this port uses `torch.sort` on packed int64 keys, gathers at `cummax`
 indices (the segmented copy), and a `cummax` over a packed key that
 carries the segment's rank in its high bits (the segmented lexicographic
-max).  Every packing checks that its fields fit.  Everything here runs on
-int64 internally; results are packed to int32.
+max).  Those scans and the prefix sums over hit rows go through
+ops/scan.py: kernel K4 on the card.  Every packing checks that its fields
+fit.  Everything here runs on int64 internally; results are packed to
+int32.
 
 The histogram core is written against combiner callables, so the same
 code runs on one device (identity combiners) and on one shard of a
@@ -35,6 +37,7 @@ import torch
 
 from audfprint_torch import params as P
 from audfprint_torch.index import device_table as DT
+from audfprint_torch.ops import scan as SC
 
 _I32MAX = 2**31 - 1
 _F32_INF_BITS = 0x7F800000
@@ -146,10 +149,10 @@ class _Runs(NamedTuple):
         B, H = first.shape
         iota = torch.arange(H, device=first.device).expand(B, H)
         a = torch.where(first, iota, H)
-        nxt_incl = torch.cummin(a.flip(1), dim=1).values.flip(1)
+        nxt_incl = SC.cummin(a, reverse=True)
         end = torch.cat([nxt_incl[:, 1:],
                          torch.full_like(nxt_incl[:, :1], H)], dim=1)
-        start = torch.cummax(torch.where(first, iota, 0), dim=1).values
+        start = SC.cummax(torch.where(first, iota, 0))
         return cls(start=start, end=end)
 
 
@@ -164,7 +167,7 @@ def _seg_spread(first: torch.Tensor, *vals: torch.Tensor) -> tuple:
     segment-start indices."""
     B, H = first.shape
     iota = torch.arange(H, device=first.device).expand(B, H)
-    idx = torch.cummax(torch.where(first, iota, 0), dim=1).values
+    idx = SC.cummax(torch.where(first, iota, 0))
     return tuple(v.gather(1, idx) for v in vals)
 
 
@@ -324,7 +327,7 @@ def _vote_rle(key: torch.Tensor, qt_f: torch.Tensor | None,
     rruns = _Runs.from_first(run_first)
     c_run = rruns.end - rruns.start
     del rruns
-    cend_c = (torch.cumsum(run_first.long(), dim=1) - 1).gather(1, cand_last)
+    cend_c = (SC.cumsum(run_first.long()) - 1).gather(1, cand_last)
     keep_r = run_first & (s_id < N)
     del run_first
     corder = torch.argsort(torch.where(keep_r, iota_h, H + iota_h), dim=1)
@@ -360,13 +363,13 @@ def _vote_rle(key: torch.Tensor, qt_f: torch.Tensor | None,
     sbits = (max(H, nbins) + 2).bit_length()
     if max(1, (H - 1).bit_length()) + sbits + pbits > 63:
         raise ValueError("segmented max key does not fit 63 bits")
-    seg_hi = (torch.cumsum(seg_first.long(), dim=1) - 1) << (sbits + pbits)
+    seg_hi = (SC.cumsum(seg_first.long()) - 1) << (sbits + pbits)
     pmax = 1 << pbits
 
     def seg_best(score, pos, valid):
         key = (seg_hi | (torch.where(valid, score + 2, 0) << pbits)
                | torch.where(valid, pmax - 1 - pos, 0))
-        run = torch.cummax(key, dim=1).values
+        run = SC.cummax(key)
         del key
         sc = (run >> pbits) & ((1 << sbits) - 1)
         best_s = torch.where(sc == 0, -(1 << 30), sc - 2)
@@ -376,9 +379,10 @@ def _vote_rle(key: torch.Tensor, qt_f: torch.Tensor | None,
         return best_s, torch.where(pc == 0, _I32MAX, pmax - 1 - pc)
 
     def seg_final(*vals):
-        """Broadcast each segment's last value over the segment."""
-        out = _seg_spread(seg_last.flip(1), *[v.flip(1) for v in vals])
-        return tuple(o.flip(1) for o in out)
+        """Broadcast each segment's last value over the segment: a gather
+        at the reverse running min of the segment-end indices."""
+        idx = SC.cummin(torch.where(seg_last, iota_h, H), reverse=True)
+        return tuple(v.gather(1, idx) for v in vals)
 
     def at_cands(a, fill):
         return torch.where(cand_valid, a.gather(1, cend_c), fill)
@@ -443,7 +447,7 @@ def _vote_rle(key: torch.Tensor, qt_f: torch.Tensor | None,
         del wplus
         mperm = torch.argsort(key_m, dim=1, stable=True)
         del key_m
-        csum = torch.cumsum(w_m.gather(1, mperm), dim=1, dtype=torch.long)
+        csum = SC.cumsum(w_m.gather(1, mperm).long())
         del w_m
         u_c = c_cov - torch.empty_like(csum).scatter_(1, mperm, csum)[:, 2 * NP:]
         del csum, mperm, c_cov
@@ -514,7 +518,7 @@ def _vote_rle(key: torch.Tensor, qt_f: torch.Tensor | None,
             q_sorted = torch.sort(
                 _pack2(s_id, torch.where(aligned, s_qt, 1 << 29)),
                 dim=1).values & 0xFFFFFFFF
-            ca = torch.cumsum(aligned.long(), dim=1)
+            ca = SC.cumsum(aligned.long())
             del aligned
             hi = ca.gather(1, cand_last)
             lo = torch.where(cand_start > 0,

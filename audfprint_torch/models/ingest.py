@@ -44,6 +44,7 @@ from audfprint_torch.ops.config import PipelineConfig
 from audfprint_torch.index import device_table as DT
 from audfprint_torch.models.analyzer import _bucket_len
 from audfprint_torch.ops import pipeline as pipe
+from audfprint_torch.ops import scan as SC
 from audfprint_torch.utils import graphs
 
 
@@ -110,7 +111,7 @@ def _route(hf, entry, vf, n_local: int, ndev: int, cap: int):
     iota = torch.arange(ds.shape[0], device=dev)
     first = torch.ones_like(vf)
     first[1:] = ds[1:] != ds[:-1]
-    rank = iota - torch.cummax(torch.where(first, iota, 0), dim=0).values
+    rank = iota - SC.cummax(torch.where(first, iota, 0))
     ok = ~((ds < ndev) & (rank >= cap)).any()
     wv = (ds < ndev) & (rank < cap)
     slot = torch.where(wv, ds * cap + rank, ndev * cap)

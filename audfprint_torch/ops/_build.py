@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
 The sources (audfprint_torch/csrc/*.cu) have a plain C interface, so nvcc
-compiles them in seconds into one shared library without PyTorch's headers:
+compiles them in seconds, without PyTorch's headers, one process a source
+started together, and links one shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/audfprint_torch/libaudfprint_kernels-<hash>.so \\
-         audfprint_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <source>.o audfprint_torch/csrc/<source>.cu
+    nvcc -shared -o build/audfprint_torch/libaudfprint_kernels-<hash>.so *.o
 
 The library lands in build/audfprint_torch/ under the checkout, named by a
 hash of the sources and flags, so an edited kernel never loads a stale
@@ -25,7 +26,7 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("hpf.cu", "pair.cu", "prune.cu")
+SOURCES = ("hpf.cu", "pair.cu", "prune.cu", "scan.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "audfprint_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -37,6 +38,7 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # x, y, x0, y0, xT, yT, B, T, F, pole, then the launch plan of
     # spectro.k2_plan (frames, stages), stream (carry pointers may be 0)
@@ -49,6 +51,8 @@ _SIGNATURES = {
     # bins, valid, hashes, lvalid, B, T, K, fanout, mindt, targetdt,
     # targetdf, stream
     "pair_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, y, workspace (may be 0), B, H, op, reverse, stream
+    "seg_scan": [_P, _P, _P, _L, _L, _I, _I, _P],
 }
 
 
@@ -71,21 +75,45 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless this exact build exists; returns its path."""
+    """Compile the kernels unless this exact build exists; returns its path.
+    Each source compiles in its own nvcc process, all started together,
+    then one link makes the library."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    tmp = f"{so}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [f"{tmp}.{s}.o" for s in SOURCES]
+    cmds = [[_nvcc(), *compile_flags, "-c", "-o", o, os.path.join(CSRC, s)]
+            for o, s in zip(objs, SOURCES)]
+    link = [_nvcc(), "-shared", "-o", f"{tmp}.tmp", *objs]
+    procs = []
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        logs = [p.communicate(timeout=900)[1] for p in procs]
+        for cmd, p, err in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stderr}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     with open(so[:-3] + ".log", "w") as f:
-        f.write(proc.stderr)
-    os.replace(tmp, so)
+        f.write("".join(logs) + proc.stderr)
+    os.replace(f"{tmp}.tmp", so)
     return so
 
 

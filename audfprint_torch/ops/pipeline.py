@@ -20,6 +20,7 @@ from audfprint_torch import params as P
 from audfprint_torch.ops.config import PipelineConfig
 from audfprint_torch.ops import cuda_peaks as CP
 from audfprint_torch.ops import landmarks as L
+from audfprint_torch.ops import scan as SC
 from audfprint_torch.ops import spectro as SP
 
 T_SENTINEL = 2**31 - 1
@@ -35,8 +36,8 @@ def frame_count_device(lengths: torch.Tensor,
 
 def launch_counters() -> tuple:
     """The kernel wrappers' launch counts: K2 (spectro), K1 and K1f
-    (cuda_peaks), K3 (landmarks)."""
-    return SP.launches, CP.launches, L.launches
+    (cuda_peaks), K3 (landmarks), K4 (scan)."""
+    return SP.launches, CP.launches, L.launches, SC.launches
 
 
 # frames of an n-sample row, under the JAX package's name

@@ -41,7 +41,16 @@ Phases (any failure exits non-zero before the result line):
      -2 past a tile and its halo, and d < -T at mindt -2 and -70), the
      config-2 batch shape 256 x 1535 x 5, and a 2 h file's
      1 x 310,078 x 5 int16 slots through streaming.pair_kept_slots; K3
-     timed at the batch, a query and the streamed shape.  Each kernel's
+     timed at the batch, a query and the streamed shape.  Then K4
+     (seg_scan, phase_scan) against its plain version, bit for bit, on
+     SCAN_CASES in each op (max, min, add) and direction (empty rows,
+     one element, one tile less one, one tile and one tile more, odd
+     widths, the mesh row 1 x 204,800, 64 x 51,200, the hist core's
+     1,441 x 25,600, a chunk's 5,894,400 hashes 1-D; int64 extremes,
+     negatives, runs across tiles, the vote's run starts); K4 timed at
+     those four main shapes beside torch's own call (cummax), the plain
+     version and its byte bound, and each op and direction at the mesh
+     row.  Each kernel's
      time (device time of back-to-back launches, cuda_ms) beside its bound
      (bytes over 3.35 TB/s, or float32 operations over 67 TFLOP/s or int32
      operations over 16.7 TOP/s, whichever is longer)
@@ -146,7 +155,8 @@ Phases (any failure exits non-zero before the result line):
      hist), the fused mesh match, the routed ingest, its overflow replay
      and ShardedStore, each replay's rows or table equal to the eager
      run's and one device's (or the host store's); one fused-mesh and
-     one routed-ingest replay run K1, K2 and K3 once per shard
+     one routed-ingest replay run K1, K2 and K3 once per shard and K4
+     its recorded count, the fused-mesh one no torch scan
      (torch.profiler and the counts); each kind's host dispatch of one
      call, the batch and ingest rates, each mesh key's capture seconds
      and MiB.  Then a process boundary: two processes of two shards each
@@ -181,7 +191,9 @@ Phases (any failure exits non-zero before the result line):
      raises no host sync under torch.cuda.set_sync_debug_mode("error");
      every key captured, then a counted run of replays alone at sub-batch
      sizes 1 and 16 with float32 and int16 input (K1, K2 and K3 counted
-     exactly once a replay, no key captured again); each replayed output
+     exactly once a replay, K4 as often as each key recorded, no key
+     captured again; one replay of each key under torch.profiler runs K4
+     that often and torch's scan_innermost_dim never); each replayed output
      equal to the eager function's on the same input bit for bit, and the
      rows to the numpy oracle's; capture seconds per key; a 1 x 10 s
      int16 query's host dispatch and device events (torch.profiler) and
@@ -204,7 +216,7 @@ Phases (any failure exits non-zero before the result line):
 Each path of phases 6-8, 10-13 and 15-18 runs with the kernels' launch
 counts set to 0 just before it and read just after; the kernel record
 lists them by path.  Every one of these paths fingerprints, so each must
-launch K3.
+launch K3; each that votes or stores on the card must launch K4.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON record and the one before that the nvidia-smi line.
 The script imports no JAX.
@@ -983,6 +995,145 @@ def pair_on_real(torch, rec: dict, audio: np.ndarray, lens: np.ndarray
                                           err)
 
 
+# K4 (seg_scan) against its plain version: every case runs each op in
+# each direction (SCAN_OPS).  Shapes: empty either way, one element, a
+# row one less than K4's tile, equal to it and one more (SCAN_TILE is
+# csrc/scan.cu kTile), odd widths whose rows start at alternating 16-byte
+# alignment, and the main paths' widths: a 4-shard mesh query's exchanged
+# row (4 x 512 x 100 hits), 64 queries of 800 hashes at depth 100 (one
+# device's fused batch at its sub-batch size), the hist core's (1,441,
+# 25,600) rows, and a (256 x 1535 x 5 x 3)-slot chunk's hashes as the
+# device store's 1-D run starts.  Values: uniform over +-2^62 (the add
+# wraps), the int64 extremes, negatives, runs of one value, and the
+# vote's run-start indices, with runs that cross tile borders.
+# tests/test_torch_scan.py holds each (cut to CPU size) against JAX.
+SCAN_TILE = 4096
+SCAN_OPS = [("max", False), ("max", True), ("min", False), ("min", True),
+            ("add", False), ("add", True)]
+SCAN_CASES = [("(0, 7)", (0, 7), "random"),
+              ("(3, 0)", (3, 0), "random"),
+              ("(1, 1)", (1, 1), "extremes"),
+              ("(1, tile-1)", (1, SCAN_TILE - 1), "random"),
+              ("(1, tile)", (1, SCAN_TILE), "extremes"),
+              ("(1, tile+1)", (1, SCAN_TILE + 1), "negatives"),
+              ("(5, 3 tiles+17) extremes", (5, 3 * SCAN_TILE + 17),
+               "extremes"),
+              ("(7, 2 tiles+5) runs", (7, 2 * SCAN_TILE + 5), "runs"),
+              ("(3, 9 tiles+1) run starts", (3, 9 * SCAN_TILE + 1),
+               "run starts"),
+              ("(1, 204800) run starts", (1, 204800), "run starts"),
+              ("(1, 204800) random", (1, 204800), "random"),
+              ("(64, 51200) run starts", (64, 51200), "run starts"),
+              ("(64, 51200) negatives", (64, 51200), "negatives"),
+              ("(1441, 25600) runs", (1441, 25600), "runs"),
+              ("1-D 5894400 run starts", (5894400,), "run starts"),
+              ("1-D 5894400 extremes", (5894400,), "extremes")]
+
+
+def scan_input(rng, shape: tuple, kind: str) -> np.ndarray:
+    """A K4 input of `shape` (int64) from a seed.  Random: uniform over
+    [-2^62, 2^62).  Extremes: INT64_MIN, INT64_MIN + 1, -1, 0, 1,
+    INT64_MAX - 1 and INT64_MAX.  Negatives: uniform over [-10^6, 0).
+    Runs: one value of +-2^40 a run, run lengths uniform over [1, 3
+    tiles).  Run starts: the vote's where(first, iota, 0) on runs of
+    lengths uniform over [1, 2 tiles)."""
+    lim = np.iinfo(np.int64)
+    if kind == "random":
+        return rng.integers(-2**62, 2**62, shape, dtype=np.int64)
+    if kind == "extremes":
+        pool = np.array([lim.min, lim.min + 1, -1, 0, 1, lim.max - 1,
+                         lim.max], np.int64)
+        return pool[rng.integers(0, len(pool), shape)]
+    if kind == "negatives":
+        return rng.integers(-10**6, 0, shape, dtype=np.int64)
+    H = shape[-1] if shape else 1
+    rows = int(np.prod(shape[:-1], dtype=np.int64))
+    longest = 3 * SCAN_TILE if kind == "runs" else 2 * SCAN_TILE
+    starts = np.cumsum(rng.integers(1, longest,
+                                    2 * (rows * H // longest) + 2))
+    first = np.zeros(rows * H, bool)
+    first[starts[starts < rows * H]] = True
+    first = first.reshape(rows, H)
+    first[:, 0] = True
+    if kind == "runs":
+        vals = rng.integers(-2**40, 2**40, rows * H, dtype=np.int64)
+        ids = np.cumsum(first.reshape(-1)) - 1
+        return vals[ids].reshape(shape)
+    iota = np.broadcast_to(np.arange(H, dtype=np.int64), (rows, H))
+    return np.where(first, iota, 0).reshape(shape)
+
+
+def scan_bound(n: int) -> tuple:
+    """K4's bound on n elements: x read once and y written once (int64),
+    and one 64-bit op (two int32 operations) an element."""
+    return bound(16 * n, 2 * n, INT32_OPS_PER_S)
+
+
+def phase_scan(torch, rec: dict, dev) -> None:
+    """K4 (seg_scan) against its plain version, bit for bit, on every
+    SCAN_CASES case in each op and direction; then timed at the main
+    paths' shapes (the forward max of the vote's run starts, each op and
+    direction at the mesh row) beside torch's own call for the same
+    function (cummax, cummin with flips, cumsum), the plain version and
+    the byte bound."""
+    from audfprint_torch.ops import scan as SC
+
+    rng = np.random.default_rng(SEED + 14)
+    n, err = 0, 0.0
+    for name, shape, kind in SCAN_CASES:
+        x = torch.from_numpy(scan_input(rng, shape, kind)).to(dev)
+        for op, rev in SCAN_OPS:
+            got = SC.seg_scan(x, op, rev)
+            want = SC.seg_scan_plain(x, op, rev)
+            torch.cuda.synchronize()
+            require(got.dtype == want.dtype and torch.equal(got, want),
+                    f"K4 differs from its plain version: {name} {kind}, "
+                    f"{op} {'reverse' if rev else 'forward'}")
+            if got.numel():
+                err = max(err, float((got - want).abs().max().item()))
+            n += 1
+    print(f"K4 seg_scan: bit-exact vs plain on {len(SCAN_CASES)} SCAN_CASES "
+          f"x {len(SCAN_OPS)} ops and directions ({n} comparisons)")
+
+    def library(x, op, rev):
+        """torch's one call for the function (flips outside the time
+        would hide their cost, so a reverse scan flips inside)."""
+        xs = x.flip(-1) if rev else x
+        if op == "max":
+            return torch.cummax(xs, dim=-1)
+        if op == "min":
+            return torch.cummin(xs, dim=-1)
+        return torch.cumsum(xs, dim=-1)
+
+    smi = nvidia_smi_line()
+    out: dict = {}
+    shapes = (("", (1, 204800)), ("query_", (64, 51200)),
+              ("hist_", (1441, 25600)), ("store_", (5894400,)))
+    for key, shape in shapes:
+        x = torch.from_numpy(scan_input(rng, shape, "run starts")).to(dev)
+        ms = cuda_ms(lambda: SC.seg_scan(x, "max"), 50)
+        lib = cuda_ms(lambda: library(x, "max", False), 20)
+        plain = plain_ms(lambda: SC.seg_scan_plain(x, "max"))
+        bms, bby = scan_bound(x.numel())
+        out.update({f"{key}ms": ms, f"{key}library_ms": lib,
+                    f"{key}plain_ms": plain, f"{key}bound_ms": bms,
+                    f"{key}bound_by": bby, f"{key}shape": list(shape)})
+        print(f"K4 seg_scan [{smi}] forward max {shape}: kernel {ms:.4f} ms, "
+              f"torch.cummax {lib:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bms:.5f} ms ({bby})")
+    x = torch.from_numpy(scan_input(rng, (1, 204800), "runs")).to(dev)
+    by_op = {}
+    for op, rev in SCAN_OPS:
+        name = f"{op} {'reverse' if rev else 'forward'}"
+        by_op[name] = [cuda_ms(lambda: SC.seg_scan(x, op, rev), 50),
+                       cuda_ms(lambda: library(x, op, rev), 20)]
+    out["mesh_row_by_op_ms"] = by_op
+    print(f"K4 seg_scan [{smi}] (1, 204800) by op, [kernel, torch] ms: "
+          + json.dumps({k: [round(v, 4) for v in p]
+                        for k, p in by_op.items()}))
+    rec["seg_scan"] = dict(max_abs_err=err, **out)
+
+
 def sm_clock_mhz(torch) -> float:
     """The SM clock under load: nvidia-smi samples it while a spinning
     kernel keeps the card busy."""
@@ -1341,7 +1492,7 @@ def phase_main_path(torch, rec: dict) -> dict:
     require(top1 >= 0.95, f"top-1 self {top1} < 0.95")
     require(min(jac) > 0.9, f"oracle Jaccard {min(jac)} <= 0.9")
     require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
-            and launches["pair_scan"] > 0,
+            and launches["pair_scan"] > 0 and launches["seg_scan"] > 0,
             f"a kernel was not launched on the main path: {launches}")
     rec["_paths"]["config2"] = launches
     ctx = dict(tracks=tracks, ht=ht, hashes=hashes, an=an, matcher=matcher,
@@ -1443,21 +1594,46 @@ def _key_name(key) -> str:
     return f"{audio[0][0]}x{audio[0][1]} {np.dtype(audio[1]).name}"
 
 
-GRAPH_KERNELS = ("prune_fwd_bwd", "hpf_scan", "pair_scan")
+GRAPH_KERNELS = ("prune_fwd_bwd", "hpf_scan", "pair_scan", "seg_scan")
+# the fingerprint's kernels, once a fingerprint replay; K4 runs once a
+# scan site of the vote or the store, its recorded count a replay
+FP_KERNELS = GRAPH_KERNELS[:3]
+# torch's own scan kernel (cummax, cummin, cumsum along a row), which no
+# sorted-core replay may run
+TORCH_SCAN = "scan_innermost_dim"
 
 
-def _cuda_events(torch, fn, kernels=GRAPH_KERNELS) -> tuple:
+def _cuda_events(torch, fn, kernels=GRAPH_KERNELS + (TORCH_SCAN,)
+                 ) -> tuple:
     """(device events, device busy ms, {kernel: events whose name holds
     it} for `kernels`) of one fn() under torch.profiler, which lists a
-    graph replay's kernels one by one."""
+    graph replay's kernels one by one.  K4's second launch (the tile
+    aggregates, seg_reduce_kernel) does not hold "seg_scan": a wrapper
+    call shows as one seg_scan event.  fn starts 20 ms into the
+    profile and the profile ends 20 ms after the device is idle: two
+    profiles on the card that opened right before a short replay lacked
+    its first kernels (a fingerprint replay with no event at all, a
+    streamed peaks replay without K2), as if the profiler had placed
+    them before its window.  A profile that holds no device event at all
+    recorded nothing (every fn given here launches kernels): it is said
+    so and taken again, up to three times, so fn must bear running more
+    than once."""
     import torch.profiler as tp
 
-    with tp.profile(activities=[tp.ProfilerActivity.CPU,
-                                tp.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(3):
+        with tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                    tp.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ev:
+            break
+        print(f"torch.profiler recorded no device event (attempt "
+              f"{attempt + 1} of 3)")
     by_name = {k: sum(k in e.name for e in ev) for k in kernels}
     return len(ev), sum(e.device_time for e in ev) / 1e3, by_name
 
@@ -1526,21 +1702,39 @@ def phase_graphs(torch, rec: dict, ctx, dev) -> dict:
     launches = _counts()
     n_rep = sum(len(h[1]) for _k, _c, h in handles)
     require(m._graphs.keys() == keys, "a replayed key was captured again")
-    require(all(launches[k] == n_rep for k in GRAPH_KERNELS),
+    require(all(launches[k] == n_rep for k in FP_KERNELS),
             f"{n_rep} replays counted as {launches}")
     rec["_paths"]["graphs"] = launches
     # the counts above are what the captures recorded; hold them against
-    # what the profiler sees one replay of each key launch
+    # what the profiler sees one replay of each key launch: K1, K2 and K3
+    # once, K4 as often as the key recorded, torch's scan never
+    per_key = {}
     for kind, rows in cases:
         _j, batch, lens = an.stage_groups(sigs[kind][:rows])[0]
-        _n, _ms, seen = _cuda_events(
-            torch, lambda: m._graphs((batch, lens), state, static(batch)))
-        require(all(seen[k] == 1 for k in GRAPH_KERNELS),
+
+        def replay():
+            return m._graphs((batch, lens), state, static(batch))
+
+        before = _counts()
+        replay()
+        per_key[kind, rows] = _launch_delta(before)["seg_scan"]
+        n_ev, _ms, seen = _cuda_events(torch, replay)
+        require(all(seen[k] == 1 for k in FP_KERNELS)
+                and seen["seg_scan"] == per_key[kind, rows] > 0
+                and seen[TORCH_SCAN] == 0,
                 f"one replay ({kind}, {rows} rows) ran the kernels {seen} "
-                "times, not once each")
+                f"times of {n_ev} device events, not K1, K2 and K3 once "
+                f"each, K4 its recorded {per_key[kind, rows]} and torch's "
+                f"scan never")
+    want_k4 = sum(len(h[1]) * per_key[kind, len(chunk)]
+                  for kind, chunk, h in handles)
+    require(launches["seg_scan"] == want_k4,
+            f"{n_rep} replays counted K4 {launches['seg_scan']} times, their "
+            f"keys recorded {want_k4}")
     print(f"graphs: one replay of each of the {len(cases)} keys ran "
-          f"{', '.join(GRAPH_KERNELS)} once each (torch.profiler kernel "
-          "events)")
+          f"{', '.join(FP_KERNELS)} once each, seg_scan its recorded "
+          f"{sorted(set(per_key.values()))} and {TORCH_SCAN} 0 times "
+          "(torch.profiler kernel events)")
     got = {kind: [] for kind in sigs}
     n_out = 0
     for kind, chunk, h in handles:
@@ -1565,7 +1759,8 @@ def phase_graphs(torch, rec: dict, ctx, dev) -> dict:
     cap = {_key_name(k): round(v, 4)
            for k, v in m._graphs.capture_seconds().items()}
     print(f"graphs [{smi}]: {len(keys)} keys captured, seconds {cap}; "
-          f"{n_rep} replays launched K1, K2 and K3 once each ({launches}); "
+          f"{n_rep} replays launched K1, K2 and K3 once each and K4 "
+          f"{launches['seg_scan']} times ({launches}); "
           f"{n_out} replayed outputs equal the eager function's bit for "
           f"bit; {sum(len(w) for w in want.values()) * 2} rows equal the "
           f"oracle's at sub-batch sizes 1 and 16, float32 and int16; cache "
@@ -1583,12 +1778,16 @@ def phase_graphs(torch, rec: dict, ctx, dev) -> dict:
     med = _in_turns(torch, {"eager": eager1, "replay": replay1})
     ev = {name: _cuda_events(torch, fn)
           for name, fn in (("eager", eager1), ("replay", replay1))}
+    top1 = _cuda_top(torch, replay1)
     print(f"graphs [{smi}]: a 1 x 10 s int16 query, host dispatch ms "
           f"(median of 50 calls in 5 rounds, eager / replay) "
           f"{med['eager']:.3f} / {med['replay']:.3f}; device events "
           f"{ev['eager'][0]} / {ev['replay'][0]}, device busy ms "
-          f"{ev['eager'][1]:.3f} / {ev['replay'][1]:.3f}, kernels "
-          f"{ev['eager'][2]} / {ev['replay'][2]} (torch.profiler)")
+          f"{ev['eager'][1]:.3f} / {ev['replay'][1]:.3f} (with torch's "
+          f"scans in place of K4: 2.213 replayed), kernels "
+          f"{ev['eager'][2]} / {ev['replay'][2]} (torch.profiler); the "
+          f"replay's kernels with the most device time (name, events, ms) "
+          f"{top1}")
 
     # the 64-query fused match rate, eager against replay, in turns
     m.match_samples_fused(an, ht, queries)
@@ -1630,6 +1829,7 @@ def phase_graphs(torch, rec: dict, ctx, dev) -> dict:
             "query_dispatch_ms": med,
             "query_device_events": {k: v[0] for k, v in ev.items()},
             "query_device_busy_ms": {k: v[1] for k, v in ev.items()},
+            "query_top_kernels": top1,
             "fused_match_q_per_s": rate, "first_call_ms": cold}
 
 
@@ -1773,15 +1973,19 @@ def phase_two_stage(torch, rec: dict, ctx, dev) -> dict:
     n_fp = sum(len(h[1]) for _k, _c, h in fps)
     require(graphs.counts["captures"] == caps,
             "a replayed two-stage key was captured again")
-    require(all(launches[k] == n_fp for k in GRAPH_KERNELS),
-            f"{n_fp} fingerprint replays counted as {launches}")
+    require(all(launches[k] == n_fp for k in FP_KERNELS)
+            and launches["seg_scan"] > 0,
+            f"{n_fp} fingerprint replays counted as {launches} (the votes' "
+            f"replays launch K4)")
     rec["_paths"]["two_stage_graphs"] = launches
     for kind, rows in [(k, r) for k in sigs for r in (1, 16)]:
         _j, batch, lens = an.stage_groups(sigs[kind][:rows])[0]
-        _n, _ms, seen = _cuda_events(
+        n_ev, _ms, seen = _cuda_events(
             torch, lambda: an._graphs((batch, lens), (), fp_static(batch)))
-        require(all(seen[k] == 1 for k in GRAPH_KERNELS),
-                f"one fingerprint replay ({kind}, {rows} rows) ran the "
+        require(all(seen[k] == 1 for k in FP_KERNELS)
+                and seen["seg_scan"] == 0,
+                f"one fingerprint replay ({kind}, {rows} rows) of {n_ev} "
+                f"device events ran the "
                 f"kernels {seen} times, not once each")
     n_out = 0
     hashes = {}
@@ -2098,7 +2302,7 @@ def phase_sharded(torch, rec, ctx, dev, ndev: int = 4, chunk: int = 256,
     launches = _counts()
     print(f"sharded path: launches {launches}")
     require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
-            and launches["pair_scan"] > 0,
+            and launches["pair_scan"] > 0 and launches["seg_scan"] > 0,
             f"a kernel was not launched on the sharded path: {launches}")
     rec["_paths"]["sharded"] = launches
     return {"sharded": out}
@@ -2144,7 +2348,8 @@ def mesh_graphs(torch, ctx, dev, ndev: int, chunk: int,
     routed ingest, its overflow replay and ShardedStore.  Gates: every
     replay's rows or table bit-equal to the eager run's and to one
     device's (or the host store's); one fused-mesh replay and one
-    routed-ingest replay run K1, K2 and K3 once per shard (torch.profiler
+    routed-ingest replay run K1, K2 and K3 once per shard and K4 its
+    recorded count, the fused-mesh one no torch scan (torch.profiler
     kernel events, and the launch counts a replay adds).  Reports each
     kind's host dispatch of one call (median of 30), the batch and ingest
     rates, and each mesh key's capture seconds and MiB."""
@@ -2271,14 +2476,18 @@ def mesh_graphs(torch, ctx, dev, ndev: int, chunk: int,
     counted = _launch_delta(before)
     _n, _ms, seen = _cuda_events(torch, replay1)
     require(all(seen[k] == ndev and counted[k] == ndev
-                for k in GRAPH_KERNELS),
+                for k in FP_KERNELS)
+            and seen["seg_scan"] == counted["seg_scan"] > 0
+            and seen[TORCH_SCAN] == 0,
             f"one fused-mesh replay ran the kernels {seen} times (counted "
-            f"{counted}), not {ndev} each")
+            f"{counted}), not K1, K2 and K3 {ndev} each, K4 its recorded "
+            f"count and torch's scan never")
     med = _in_turns(torch, {"eager": eager1, "replay": replay1}, rounds=3)
     ev = {name: _cuda_events(torch, fn)[:2]
           for name, fn in (("eager", eager1), ("replay", replay1))}
     out["mesh_fused_top_kernels"] = _cuda_top(torch, replay1)
     out["mesh_dispatch_ms"]["fused"] = med
+    out["mesh_fused_device_ms"] = {k: v[1] for k, v in ev.items()}
     out["mesh_keys"]["fused"] = _key_mib(m._mesh_graphs)
     out["mesh_fused_ms"] = {k: [round(1e3 * w, 3) for w in v]
                             for k, v in walls.items()}
@@ -2290,7 +2499,9 @@ def mesh_graphs(torch, ctx, dev, ndev: int, chunk: int,
           f"(median of 30, eager / replay) {med['eager']:.3f} / "
           f"{med['replay']:.3f}, device events {ev['eager'][0]} / "
           f"{ev['replay'][0]}, device busy ms {ev['eager'][1]:.3f} / "
-          f"{ev['replay'][1]:.3f}; keys [capture s, MiB] "
+          f"{ev['replay'][1]:.3f} (with torch's scans in place of K4: "
+          f"18.591 replayed); "
+          f"keys [capture s, MiB] "
           f"{out['mesh_keys']['fused']}; the replay's kernels with the most "
           f"device time (name, events, ms) {out['mesh_fused_top_kernels']}")
     del m
@@ -2337,9 +2548,11 @@ def mesh_graphs(torch, ctx, dev, ndev: int, chunk: int,
     counted = _launch_delta(before)
     _n, _ms, seen = _cuda_events(torch, ing_replay)
     require(all(seen[k] == ndev and counted[k] == ndev
-                for k in GRAPH_KERNELS),
+                for k in FP_KERNELS)
+            and seen["seg_scan"] == counted["seg_scan"] > 0,
             f"one routed-ingest replay ran the kernels {seen} times "
-            f"(counted {counted}), not {ndev} each")
+            f"(counted {counted}), not K1, K2 and K3 {ndev} each and K4 "
+            f"its recorded count")
     med = _in_turns(torch, {"eager": ing_eager, "replay": ing_replay},
                     rounds=3, calls=3)
     out["mesh_dispatch_ms"]["routed ingest"] = med
@@ -2814,18 +3027,27 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
     launches = _counts()
     require(_tables_equal(ht, ht_host),
             "the replayed device store's table differs from the host store's")
-    require(all(launches[k] == len(chunks) for k in GRAPH_KERNELS),
+    require(all(launches[k] == len(chunks) for k in FP_KERNELS)
+            and launches["seg_scan"] >= len(chunks),
             f"the device-store path did not launch K1, K2 and K3 once a "
-            f"chunk: {launches}")
+            f"chunk and K4 at least once a chunk: {launches}")
     rec["_paths"]["device_store"] = launches
     # the key of the full chunks (a short last chunk may have its own)
     cap_s = list(ing._ingest.capture_seconds().values())[0]
     held = list(ing._ingest.held_by_key().values())[0] / 2**20
-    _n, _ms, seen = _cuda_events(
-        torch, lambda: ing.consume_chunk(ing.dispatch_chunk(chunks[1],
-                                                            print)))
-    require(all(seen[k] == 1 for k in GRAPH_KERNELS),
-            f"one ingest replay ran the kernels {seen} times, not once each")
+    def chunk1():
+        ing.consume_chunk(ing.dispatch_chunk(chunks[1], print))
+
+    before = _counts()
+    chunk1()
+    torch.cuda.synchronize()
+    counted = _launch_delta(before)
+    n_ev, _ms, seen = _cuda_events(torch, chunk1)
+    require(all(seen[k] == 1 for k in FP_KERNELS)
+            and seen["seg_scan"] == counted["seg_scan"] > 0,
+            f"one ingest replay ran the kernels {seen} times of {n_ev} "
+            f"device events, not K1, K2 and K3 once each and K4 its "
+            f"recorded {counted['seg_scan']}")
     del ing
     print(f"device store [{smi}], config 2: {len(tracks)} tracks in "
           f"{t_dev:.3f} s = {audio / t_dev:.1f} audio-s/s, its ingest key "
@@ -3085,7 +3307,7 @@ def phase_config3(torch, rec, dev, n_tracks=1000, dur=30.0, nq=32,
                 f"config 3 {name}: the sweep did not recover it "
                 f"{curve[name]}")
     require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
-            and launches["pair_scan"] > 0,
+            and launches["pair_scan"] > 0 and launches["seg_scan"] > 0,
             f"a kernel was not launched on the config 3 path: {launches}")
     rec["_paths"]["config3_sweep"] = launches
 
@@ -3261,9 +3483,9 @@ def phase_broadcast(torch, rec, ctx, dev, d, n_seg=360, seg_sec=20.0,
             f"broadcast: do_match peaked {peak_all:.1f} MiB above resident, "
             f"past the vote's {budget / 2**20:.1f} MiB budget")
     require(launches["prune_fwd_carry"] > 0 and launches["hpf_scan"] > 0
-            and launches["pair_scan"] > 0,
-            f"the broadcast log did not stream through K1f, K2 and K3: "
-            f"{launches}")
+            and launches["pair_scan"] > 0 and launches["seg_scan"] > 0,
+            f"the broadcast log did not stream through K1f, K2 and K3, or "
+            f"its vote through K4: {launches}")
     # a seeded sample of the windowed rows against the oracle, bit for bit
     pick = np.random.default_rng(SEED + 7).choice(
         len(wins), min(96, len(wins)), replace=False)
@@ -3407,7 +3629,7 @@ def phase_listen(torch, rec, ctx, dev, d, n_inter=16, n_backlog=48) -> dict:
     require(len(backlog_calls) < n_ok,
             f"the backlog took {len(backlog_calls)} do_match calls")
     require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
-            and launches["pair_scan"] > 0,
+            and launches["pair_scan"] > 0 and launches["seg_scan"] > 0,
             f"a kernel was not launched on the listen path: {launches}")
     rec["_paths"]["listen"] = launches
 
@@ -3664,7 +3886,7 @@ def phase_wide(torch, rec, ctx, dev, hashbits=None) -> dict:
           f"warm); launches {launches}")
     require(all(ok), "a query missed its sparse id on the wide table")
     require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
-            and launches["pair_scan"] > 0,
+            and launches["pair_scan"] > 0 and launches["seg_scan"] > 0,
             f"a kernel was not launched on the wide path: {launches}")
     rec["_paths"]["wide"] = launches
     return {"wide_table_mib": tab_mib, "wide_store_s": t_store,
@@ -4223,12 +4445,13 @@ def _contract_compat(torch, dev, d) -> dict:
 
 
 def _contract_zero_size(torch, dev) -> None:
-    """The kernels' wrappers at B = 0 and T = 0 (and K3 at fanout 0)
-    return empty results without a launch (their guards, not a caught
-    error)."""
+    """The kernels' wrappers at B = 0 and T = 0 (and K3 at fanout 0, K4
+    at H = 0) return empty results without a launch (their guards, not a
+    caught error)."""
     from audfprint_torch.ops import cuda_peaks as CP
     from audfprint_torch.ops import landmarks as L
     from audfprint_torch.ops import peaks as PK
+    from audfprint_torch.ops import scan as SC
     from audfprint_torch.ops import spectro as SP
     from audfprint_torch.ops.config import PipelineConfig
 
@@ -4261,6 +4484,11 @@ def _contract_zero_size(torch, dev) -> None:
                 x, torch.zeros((B, F), device=dev), gvec, cfg.a_dec, k)
             require(lpos.shape == (B, T, k) and env.shape == (B, F),
                     f"prune_fwd_carry at B={B}, T={T}")
+    for shape in ((0, 9), (4, 0), (0,)):
+        x = torch.zeros(shape, dtype=torch.int64, device=dev)
+        for op, rev in SCAN_OPS:
+            require(SC.seg_scan(x, op, rev).shape == shape,
+                    f"seg_scan at {shape}, {op}")
     _sync(torch, dev)
     after = _counts()
     require(after == before, f"a zero-size call launched a kernel: {before} "
@@ -4586,7 +4814,7 @@ def phase_contract(torch, rec: dict, dev, d) -> dict:
     out["contract_s"] = time.time() - t0
     print(f"contract phase: {out['contract_s']:.2f} s; launches {launches}")
     require(launches["prune_fwd_bwd"] > 0 and launches["hpf_scan"] > 0
-            and launches["pair_scan"] > 0,
+            and launches["pair_scan"] > 0 and launches["seg_scan"] > 0,
             f"a kernel was not launched on the contract path: {launches}")
     rec["_paths"]["contract"] = launches
     _contract_new_functions(torch, dev)      # comparisons: not counted
@@ -4644,6 +4872,7 @@ def main() -> int:
         timed("kernels", phase_kernels, torch, rec)
         timed("stream_kernels", phase_stream_kernels, torch, rec, dev)
         timed("pair_kernel", phase_pair, torch, rec, dev)
+        timed("scan_kernel", phase_scan, torch, rec, dev)
         with tempfile.TemporaryDirectory() as d:
             summary.update(timed("contract", phase_contract, torch, rec, dev,
                                  d))
@@ -4687,7 +4916,9 @@ def main() -> int:
             ("hpf_scan", "audfprint_torch/csrc/hpf.cu",
              "audfprint_tpu/ops/spectro.py:77"),
             ("pair_scan", "audfprint_torch/csrc/pair.cu",
-             "audfprint_tpu/ops/landmarks.py:77")):
+             "audfprint_tpu/ops/landmarks.py:77"),
+            ("seg_scan", "audfprint_torch/csrc/scan.cu",
+             "audfprint_tpu/match/voting.py:546")):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
