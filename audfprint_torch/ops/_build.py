@@ -51,8 +51,8 @@ _SIGNATURES = {
     # bins, valid, hashes, lvalid, B, T, K, fanout, mindt, targetdt,
     # targetdf, stream
     "pair_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, y, workspace (may be 0), B, H, op, reverse, stream
-    "seg_scan": [_P, _P, _P, _L, _L, _I, _I, _P],
+    # x, y, workspace (may be 0), B, H, tile, op, reverse, stream
+    "seg_scan": [_P, _P, _P, _L, _L, _I, _I, _I, _P],
 }
 
 

@@ -14,8 +14,13 @@ from __future__ import annotations
 
 import torch
 
-# int64 elements a block of K4 scans (csrc/scan.cu kTile)
-TILE = 4096
+# int64 elements a block of K4 scans (csrc/scan.cu kTileSmall,
+# kTileMedium, kTileLarge)
+TILES = (1024, 2048, 4096)
+# the blocks a call should give: about 100 spread it over most of an
+# H100's 132 SMs; past that, more tiles in one row lengthen its look-back
+# chain more than the spread saves (PERF.md)
+SPREAD = 100
 _OPS = {"max": 0, "min": 1, "add": 2}
 
 # kernel launches made by seg_scan (read by the on-card smoke run)
@@ -39,14 +44,34 @@ def seg_scan_plain(x: torch.Tensor, op: str,
     return y.flip(-1) if reverse else y
 
 
-def seg_scan(x: torch.Tensor, op: str, reverse: bool = False
-             ) -> torch.Tensor:
+def plan(B: int, H: int) -> int:
+    """K4's tile for a (B, H) call: the largest tile that gives SPREAD
+    blocks or more, else the smallest (a one-tile row of a short call
+    takes it too)."""
+    for tile in reversed(TILES):
+        if B * -(-H // tile) >= SPREAD:
+            return tile
+    return TILES[0]
+
+
+def workspace_words(B: int, H: int, tile: int) -> int:
+    """int64 words of K4's workspace at this tile: the tile counter, a
+    word unused (16-byte alignment) and a 16-byte slot a tile, status and
+    value (csrc/scan.cu); none when a row is one tile."""
+    ntiles = -(-H // tile)
+    return 2 + 2 * B * ntiles if ntiles > 1 else 0
+
+
+def seg_scan(x: torch.Tensor, op: str, reverse: bool = False, *,
+             tile: int | None = None) -> torch.Tensor:
     """y[..., i] = x[..., 0] op ... op x[..., i] (reverse: x[..., i] op
     ... op x[..., -1]) for op in "max", "min", "add" (wrapping modulo
     2^64): K4 on a CUDA tensor, seg_scan_plain on a CPU tensor.
 
     Args:
       x: int64, at least one dimension; the scan runs along the last.
+      tile: K4's tile, one of TILES; None takes `plan`'s.  The result
+        does not depend on it; the CPU ignores it.
     Returns an int64 tensor of x's shape.
     """
     if x.device.type == "cpu":
@@ -64,16 +89,19 @@ def seg_scan(x: torch.Tensor, op: str, reverse: bool = False
         return y
     H = x.shape[-1]
     B = x.numel() // H
-    ntiles = -(-H // TILE)
-    ws = (torch.empty((B, ntiles), dtype=torch.int64, device=x.device)
-          if ntiles > 1 else None)
+    tile = plan(B, H) if tile is None else tile
+    if tile not in TILES:
+        raise ValueError(f"seg_scan: tile {tile} is not one of {TILES}")
+    words = workspace_words(B, H, tile)
+    ws = (torch.empty((words,), dtype=torch.int64, device=x.device)
+          if words else None)
     from audfprint_torch.ops import _build
 
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.seg_scan(x.data_ptr(), y.data_ptr(),
                            ws.data_ptr() if ws is not None else None, B, H,
-                           _OPS[op], int(reverse),
+                           tile, _OPS[op], int(reverse),
                            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "seg_scan")
     launches["seg_scan"] += 1

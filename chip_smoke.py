@@ -47,10 +47,13 @@ Phases (any failure exits non-zero before the result line):
      one element, one tile less one, one tile and one tile more, odd
      widths, the mesh row 1 x 204,800, 64 x 51,200, the hist core's
      1,441 x 25,600, a chunk's 5,894,400 hashes 1-D; int64 extremes,
-     negatives, runs across tiles, the vote's run starts); K4 timed at
-     those four main shapes beside torch's own call (cummax), the plain
-     version and its byte bound, and each op and direction at the mesh
-     row.  Each kernel's
+     negatives, runs across tiles, the vote's run starts; the one-query
+     row 1 x 51,200, rows of 10,001 tiles), at the planned tile and at
+     each tile forced; K4 inside a CUDA graph replayed 100 times over
+     changing inputs, and on two streams at once; K4 timed at five main
+     shapes (the one-query row added), each op and direction, beside
+     torch's own call (cummax, cummin, cumsum), the plain version and
+     its byte bound.  Each kernel's
      time (device time of back-to-back launches, cuda_ms) beside its bound
      (bytes over 3.35 TB/s, or float32 operations over 67 TFLOP/s or int32
      operations over 16.7 TOP/s, whichever is longer)
@@ -996,18 +999,25 @@ def pair_on_real(torch, rec: dict, audio: np.ndarray, lens: np.ndarray
 
 
 # K4 (seg_scan) against its plain version: every case runs each op in
-# each direction (SCAN_OPS).  Shapes: empty either way, one element, a
-# row one less than K4's tile, equal to it and one more (SCAN_TILE is
-# csrc/scan.cu kTile), odd widths whose rows start at alternating 16-byte
-# alignment, and the main paths' widths: a 4-shard mesh query's exchanged
-# row (4 x 512 x 100 hits), 64 queries of 800 hashes at depth 100 (one
-# device's fused batch at its sub-batch size), the hist core's (1,441,
-# 25,600) rows, and a (256 x 1535 x 5 x 3)-slot chunk's hashes as the
-# device store's 1-D run starts.  Values: uniform over +-2^62 (the add
-# wraps), the int64 extremes, negatives, runs of one value, and the
-# vote's run-start indices, with runs that cross tile borders.
+# each direction (SCAN_OPS), at the tile ops/scan.plan gives it and at
+# each of K4's tiles forced (SCAN_TILES is csrc/scan.cu kTileSmall,
+# kTileMedium, kTileLarge).  Shapes: empty either way, one element, a
+# row one less than the small and the large tile, equal to it and one
+# more, odd widths whose rows start
+# at alternating 16-byte alignment, and the main paths' widths: a
+# one-device query's vote row (1 x 512 x 100 hits), a 4-shard mesh
+# query's exchanged row (4 x 512 x 100), 64 queries of 800 hashes at
+# depth 100 (one device's fused batch at its sub-batch size), the hist
+# core's (1,441, 25,600) rows, and a (256 x 1535 x 5 x 3)-slot chunk's
+# hashes as the device store's 1-D run starts; then rows deep enough
+# that a look-back crosses many windows: 300 rows of 4,097 (the plan's
+# large tile, 2 tiles a row, odd width) and 1-D rows of 10,001 large
+# tiles (40,001 small ones when forced).  Values: uniform over +-2^62
+# (the add wraps), the int64 extremes, negatives, runs of one value, and
+# the vote's run-start indices, with runs that cross tile borders.
 # tests/test_torch_scan.py holds each (cut to CPU size) against JAX.
-SCAN_TILE = 4096
+SCAN_TILES = (1024, 2048, 4096)
+SCAN_TILE = SCAN_TILES[-1]
 SCAN_OPS = [("max", False), ("max", True), ("min", False), ("min", True),
             ("add", False), ("add", True)]
 SCAN_CASES = [("(0, 7)", (0, 7), "random"),
@@ -1027,7 +1037,16 @@ SCAN_CASES = [("(0, 7)", (0, 7), "random"),
               ("(64, 51200) negatives", (64, 51200), "negatives"),
               ("(1441, 25600) runs", (1441, 25600), "runs"),
               ("1-D 5894400 run starts", (5894400,), "run starts"),
-              ("1-D 5894400 extremes", (5894400,), "extremes")]
+              ("1-D 5894400 extremes", (5894400,), "extremes"),
+              ("(1, small-1)", (1, SCAN_TILES[0] - 1), "random"),
+              ("(1, small)", (1, SCAN_TILES[0]), "extremes"),
+              ("(1, small+1)", (1, SCAN_TILES[0] + 1), "negatives"),
+              ("(1, 51200) run starts", (1, 51200), "run starts"),
+              ("(300, tile+1) random", (300, SCAN_TILE + 1), "random"),
+              ("1-D 10000 tiles+1 run starts", (10000 * SCAN_TILE + 1,),
+               "run starts"),
+              ("1-D 10000 tiles+1 random", (10000 * SCAN_TILE + 1,),
+               "random")]
 
 
 def scan_input(rng, shape: tuple, kind: str) -> np.ndarray:
@@ -1071,29 +1090,38 @@ def scan_bound(n: int) -> tuple:
 
 def phase_scan(torch, rec: dict, dev) -> None:
     """K4 (seg_scan) against its plain version, bit for bit, on every
-    SCAN_CASES case in each op and direction; then timed at the main
-    paths' shapes (the forward max of the vote's run starts, each op and
-    direction at the mesh row) beside torch's own call for the same
-    function (cummax, cummin with flips, cumsum), the plain version and
-    the byte bound."""
+    SCAN_CASES case in each op and direction, at the planned tile and at
+    each tile forced; inside a captured CUDA graph replayed 100 times
+    (scan_graph_replays) and on two streams at once (scan_two_streams);
+    then timed at the main paths' shapes, each op and direction, beside
+    torch's own call for the same function (cummax, cummin with flips,
+    cumsum), the plain version (forward max) and the byte bound."""
     from audfprint_torch.ops import scan as SC
 
+    require(tuple(SC.TILES) == SCAN_TILES,
+            f"ops/scan.TILES {SC.TILES} is not SCAN_TILES {SCAN_TILES}")
     rng = np.random.default_rng(SEED + 14)
     n, err = 0, 0.0
     for name, shape, kind in SCAN_CASES:
         x = torch.from_numpy(scan_input(rng, shape, kind)).to(dev)
         for op, rev in SCAN_OPS:
-            got = SC.seg_scan(x, op, rev)
             want = SC.seg_scan_plain(x, op, rev)
-            torch.cuda.synchronize()
-            require(got.dtype == want.dtype and torch.equal(got, want),
-                    f"K4 differs from its plain version: {name} {kind}, "
-                    f"{op} {'reverse' if rev else 'forward'}")
-            if got.numel():
-                err = max(err, float((got - want).abs().max().item()))
-            n += 1
+            for tile in (None,) + SCAN_TILES:
+                got = SC.seg_scan(x, op, rev, tile=tile)
+                torch.cuda.synchronize()
+                require(got.dtype == want.dtype and torch.equal(got, want),
+                        f"K4 differs from its plain version: {name} {kind}, "
+                        f"{op} {'reverse' if rev else 'forward'}, tile "
+                        f"{tile or 'planned'}")
+                if got.numel():
+                    err = max(err, float((got - want).abs().max().item()))
+                n += 1
+        del x
     print(f"K4 seg_scan: bit-exact vs plain on {len(SCAN_CASES)} SCAN_CASES "
-          f"x {len(SCAN_OPS)} ops and directions ({n} comparisons)")
+          f"x {len(SCAN_OPS)} ops and directions x the planned tile and "
+          f"each of {SCAN_TILES} ({n} comparisons)")
+    scan_graph_replays(torch, SC, rng, dev)
+    scan_two_streams(torch, SC, rng, dev)
 
     def library(x, op, rev):
         """torch's one call for the function (flips outside the time
@@ -1106,32 +1134,110 @@ def phase_scan(torch, rec: dict, dev) -> None:
         return torch.cumsum(xs, dim=-1)
 
     smi = nvidia_smi_line()
-    out: dict = {}
-    shapes = (("", (1, 204800)), ("query_", (64, 51200)),
-              ("hist_", (1441, 25600)), ("store_", (5894400,)))
-    for key, shape in shapes:
+    out: dict = {"by_op_ms": {}}
+    for key, shape in SCAN_TIMED:
         x = torch.from_numpy(scan_input(rng, shape, "run starts")).to(dev)
+        H = shape[-1]
+        tile = SC.plan(x.numel() // H, H)
         ms = cuda_ms(lambda: SC.seg_scan(x, "max"), 50)
         lib = cuda_ms(lambda: library(x, "max", False), 20)
         plain = plain_ms(lambda: SC.seg_scan_plain(x, "max"))
         bms, bby = scan_bound(x.numel())
         out.update({f"{key}ms": ms, f"{key}library_ms": lib,
                     f"{key}plain_ms": plain, f"{key}bound_ms": bms,
-                    f"{key}bound_by": bby, f"{key}shape": list(shape)})
-        print(f"K4 seg_scan [{smi}] forward max {shape}: kernel {ms:.4f} ms, "
-              f"torch.cummax {lib:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bms:.5f} ms ({bby})")
-    x = torch.from_numpy(scan_input(rng, (1, 204800), "runs")).to(dev)
-    by_op = {}
-    for op, rev in SCAN_OPS:
-        name = f"{op} {'reverse' if rev else 'forward'}"
-        by_op[name] = [cuda_ms(lambda: SC.seg_scan(x, op, rev), 50),
-                       cuda_ms(lambda: library(x, op, rev), 20)]
-    out["mesh_row_by_op_ms"] = by_op
-    print(f"K4 seg_scan [{smi}] (1, 204800) by op, [kernel, torch] ms: "
-          + json.dumps({k: [round(v, 4) for v in p]
-                        for k, p in by_op.items()}))
+                    f"{key}bound_by": bby, f"{key}shape": list(shape),
+                    f"{key}tile": tile})
+        print(f"K4 seg_scan [{smi}] forward max {shape}, tile {tile}: kernel "
+              f"{ms:.4f} ms, torch.cummax {lib:.4f} ms, plain {plain:.4f} ms,"
+              f" bound {bms:.5f} ms ({bby})")
+        by_op = {}
+        for op, rev in SCAN_OPS:
+            name = f"{op} {'reverse' if rev else 'forward'}"
+            by_op[name] = [cuda_ms(lambda: SC.seg_scan(x, op, rev), 50),
+                           cuda_ms(lambda: library(x, op, rev), 20)]
+        out["by_op_ms"][str(tuple(shape))] = by_op
+        print(f"K4 seg_scan [{smi}] {shape} by op, [kernel, torch] ms: "
+              + json.dumps({k: [round(v, 4) for v in p]
+                            for k, p in by_op.items()}))
+        del x
     rec["seg_scan"] = dict(max_abs_err=err, **out)
+
+
+# K4's timed shapes (key prefix in the kernels line, shape): the
+# one-device query's vote row, the 4-shard mesh row (the unprefixed
+# keys), 64 queries at their sub-batch size, the hist core's rows and a
+# chunk's 1-D run starts
+SCAN_TIMED = (("one_query_", (1, 51200)), ("", (1, 204800)),
+              ("query_", (64, 51200)), ("hist_", (1441, 25600)),
+              ("store_", (5894400,)))
+
+
+def scan_graph_replays(torch, SC, rng, dev, replays: int = 100) -> None:
+    """K4 captured in one torch.cuda.CUDAGraph at the main shapes (each at
+    its planned tile, all of them rows of several tiles), replayed
+    `replays` times with the inputs changed before each replay (three
+    inputs in turn, uniform over +-2^62): every replay must equal the
+    plain version bit for bit.  A replay that found the previous one's
+    tile counter would scan nothing, and one that found its statuses
+    would fold the previous input's prefixes, so this holds the memset
+    node that zeroes them."""
+    calls = (((1, 51200), "add", False), ((1, 204800), "max", True),
+             ((64, 51200), "min", False), ((5894400,), "add", True))
+    pools = [[torch.from_numpy(scan_input(rng, shape, "random")).to(dev)
+              for _ in range(3)] for shape, _op, _rev in calls]
+    wants = [[SC.seg_scan_plain(x, op, rev) for x in pool]
+             for pool, (_s, op, rev) in zip(pools, calls)]
+    xs = [pool[0].clone() for pool in pools]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x, (_s, op, rev) in zip(xs, calls):
+            SC.seg_scan(x, op, rev)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = [SC.seg_scan(x, op, rev) for x, (_s, op, rev) in zip(xs, calls)]
+    for r in range(replays):
+        for x, pool in zip(xs, pools):
+            x.copy_(pool[r % 3])
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (y, (shape, op, rev)) in enumerate(zip(ys, calls)):
+            require(torch.equal(y, wants[i][r % 3]),
+                    f"K4 replay {r} of a captured graph differs from its "
+                    f"plain version: {shape} {op} "
+                    f"{'reverse' if rev else 'forward'}")
+    del graph
+    print(f"K4 seg_scan: {replays} replays of a captured graph of "
+          f"{len(calls)} calls ({', '.join(str(c[0]) for c in calls)}), "
+          f"inputs changed before each: bit-exact vs plain")
+
+
+def scan_two_streams(torch, SC, rng, dev, rounds: int = 8) -> None:
+    """K4 on two streams at once over distinct inputs (two 1-D chunks at
+    the large tile, the mesh row at the medium one and the one-query row
+    at the small one, each op and direction in turn), so that the calls'
+    blocks share the card and each spins on its own workspace; every
+    result must equal the plain version bit for bit."""
+    shapes = ((5894400,), (1, 204800), (5894400,), (1, 51200))
+    xs = [torch.from_numpy(scan_input(rng, s, "random")).to(dev)
+          for s in shapes]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for r in range(rounds):
+        op, rev = SCAN_OPS[r % len(SCAN_OPS)]
+        for i, x in enumerate(xs):
+            with torch.cuda.stream(streams[i % 2]):
+                got.append((i, op, rev, SC.seg_scan(x, op, rev)))
+    torch.cuda.synchronize()
+    for i, op, rev, y in got:
+        require(torch.equal(y, SC.seg_scan_plain(xs[i], op, rev)),
+                f"K4 on two streams differs from its plain version: "
+                f"{shapes[i]} {op} {'reverse' if rev else 'forward'}")
+    print(f"K4 seg_scan: {len(got)} calls on two streams at once over "
+          f"{len(xs)} distinct inputs: bit-exact vs plain")
 
 
 def sm_clock_mhz(torch) -> float:
@@ -1607,9 +1713,9 @@ def _cuda_events(torch, fn, kernels=GRAPH_KERNELS + (TORCH_SCAN,)
                  ) -> tuple:
     """(device events, device busy ms, {kernel: events whose name holds
     it} for `kernels`) of one fn() under torch.profiler, which lists a
-    graph replay's kernels one by one.  K4's second launch (the tile
-    aggregates, seg_reduce_kernel) does not hold "seg_scan": a wrapper
-    call shows as one seg_scan event.  fn starts 20 ms into the
+    graph replay's kernels one by one.  A K4 wrapper call shows as one
+    seg_scan event (its workspace reset is a memset, not a kernel).  fn
+    starts 20 ms into the
     profile and the profile ends 20 ms after the device is idle: two
     profiles on the card that opened right before a short replay lacked
     its first kernels (a fingerprint replay with no event at all, a
