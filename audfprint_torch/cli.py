@@ -14,7 +14,8 @@ all give the --ndev 1 results bit for bit.  Unset, --ndev is the number of
 local devices: the single-device paths on one card.
 `match` also serves `--windowed` (broadcast monitoring), `--speed-sweep`,
 `--listen` (a stdin serving loop) and the `-I`/`-J`/`--sonify`
-diagnostics; `--profile DIR` writes a torch.profiler trace; `--idbits`
+diagnostics; `--profile DIR` writes a torch.profiler trace, the
+program's spans (utils/timing) among its ranges; `--idbits`
 past 32 - maxtimebits makes a wide table.
 
 The device is a keyword of `main` (CUDA by default), so tests can drive
@@ -37,13 +38,12 @@ from audfprint_torch import params as P
 from audfprint_torch.index.hash_table import HashTable
 from audfprint_torch.utils import audio as audio_io
 from audfprint_torch.utils import formats
+from audfprint_torch.utils import timing
 from audfprint_torch.utils.timing import Stages
 from audfprint_torch.match.matcher import Matcher, slice_hash_windows
 from audfprint_torch.models.analyzer import Analyzer
 from audfprint_torch.models.ingest import DeviceIngest
-from audfprint_torch.ops import cuda_peaks as CP
-from audfprint_torch.ops import landmarks as L
-from audfprint_torch.ops import spectro as SP
+from audfprint_torch.ops import pipeline as pipe
 from audfprint_torch.utils import graphs
 from audfprint_torch.utils.device import resolve_device
 
@@ -152,10 +152,13 @@ def make_parser() -> argparse.ArgumentParser:
       help="streamed ingest chunk size in analysis frames (~190 s at the "
            "defaults); results are identical at any value")
     a("--profile", type=str, default=None,
-      help="write a torch.profiler Chrome trace (host and CUDA activity) "
-           "to this directory")
+      help="write a torch.profiler Chrome trace (host and CUDA activity, "
+           "with the program's spans as ranges: ingest.*, graph.*, "
+           "stage.*) to this directory")
     a("--json-metrics", dest="json_metrics", type=str, default=None,
-      help="write per-stage timing/counters JSON to this file")
+      help="write per-stage timing/counters JSON to this file, with the "
+           "program's spans (total and self seconds, calls), counters, "
+           "graph capture seconds and span records")
     return p
 
 
@@ -815,8 +818,12 @@ def main(argv=None, device=None) -> int:
                 print(msg)
 
     prof = None
+    tracer_was_on = timing.TRACER.on
     try:
         stages = Stages()
+        if args.json_metrics:
+            timing.TRACER.reset()
+            timing.TRACER.on = True
         if args.profile:
             os.makedirs(args.profile, exist_ok=True)
             prof = _start_profile(device)
@@ -879,11 +886,14 @@ def main(argv=None, device=None) -> int:
             stages.add_meta(command=cmd, n_files=n_files,
                             total_dur_s=round(tot_dur, 3),
                             elapsed_s=round(elapsed, 3),
-                            kernel_launches={**SP.launches, **CP.launches,
-                                             **L.launches},
-                            graphs=dict(graphs.counts))
+                            kernel_launches={
+                                k: n for d in pipe.launch_counters()
+                                for k, n in d.items()},
+                            graphs=dict(graphs.counts),
+                            **timing.TRACER.summary())
             stages.dump_json(args.json_metrics)
     finally:
+        timing.TRACER.on = tracer_was_on
         if prof is not None:         # a command raised: end the session
             prof.stop()
         if out_f is not None:

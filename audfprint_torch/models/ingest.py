@@ -45,7 +45,7 @@ from audfprint_torch.index import device_table as DT
 from audfprint_torch.models.analyzer import _bucket_len
 from audfprint_torch.ops import pipeline as pipe
 from audfprint_torch.ops import scan as SC
-from audfprint_torch.utils import graphs
+from audfprint_torch.utils import graphs, timing
 
 
 def fused_ingest_graph(table: torch.Tensor, counts: torch.Tensor,
@@ -214,7 +214,14 @@ class DeviceIngest:
     of their shards) being the state.  A mesh over several devices or
     processes runs the same functions eagerly.  cap_override forces the
     mesh's routing cap (None = the cap with 2x headroom); it is part of
-    the routed ingest's key."""
+    the routed ingest's key.
+
+    Spans (utils/timing), each chunk's sharing its sequence number as
+    their id: ingest.dispatch over ingest.stage (the padded batch, or the
+    padded host hashes), ingest.ids (id assignment) and the graph
+    cache's graph.pin / graph.launch; ingest.consume over
+    ingest.counts_fetch (the blocking fetch of the counts); and
+    ingest.finalize."""
 
     def __init__(self, ht, analyzer, ndev: int = 1,
                  cap_override: int | None = None):
@@ -258,6 +265,7 @@ class DeviceIngest:
             self._store = graphs.GraphCache(_store_step, self.device,
                                             counters)
         self.replays = 0            # chunks replayed after a cap overflow
+        self.seq = 0                # chunks dispatched: the id of their spans
 
     def _run(self, cache, inputs, static, nbytes: int):
         """cache's function on `inputs` and the table: its graph's replay
@@ -288,33 +296,36 @@ class DeviceIngest:
 
         Returns a handle for consume_chunk; entries that failed decode or
         load are reported (or raise under fail_on_error) and skipped."""
-        an = self.analyzer
-        segs: list = []      # (kind, [(name, payload, dur)])
-        for name, kind, d in ordered:
-            if kind == "wav":
-                if d is None:
-                    continue                       # decode failed, reported
-                row = (name, d, len(d) / an.target_sr)
-            elif kind == "stream":
-                if d is None:
-                    continue                       # stream failed, reported
-                kind = "pre"                       # hashes already on host
-                row = (name, d[0], d[1])
-            else:
-                try:
-                    h = an.wavfile2hashes(name)
-                except (OSError, ValueError) as e:
-                    if an.fail_on_error:
-                        raise
-                    report(f"Error reading {name}: {e}")
-                    continue
-                row = (name, h, an.soundfiledur)
-            if segs and segs[-1][0] == kind:
-                segs[-1][1].append(row)
-            else:
-                segs.append((kind, [row]))
-        return [self._dispatch_wavs(rows) if kind == "wav"
-                else self._dispatch_pre(rows) for kind, rows in segs]
+        seq, self.seq = self.seq, self.seq + 1
+        with timing.span("ingest.dispatch", id=seq):
+            an = self.analyzer
+            segs: list = []      # (kind, [(name, payload, dur)])
+            for name, kind, d in ordered:
+                if kind == "wav":
+                    if d is None:
+                        continue  # decode failed, reported
+                    row = (name, d, len(d) / an.target_sr)
+                elif kind == "stream":
+                    if d is None:
+                        continue  # stream failed, reported
+                    kind = "pre"  # hashes already on host
+                    row = (name, d[0], d[1])
+                else:
+                    try:
+                        h = an.wavfile2hashes(name)
+                    except (OSError, ValueError) as e:
+                        if an.fail_on_error:
+                            raise
+                        report(f"Error reading {name}: {e}")
+                        continue
+                    row = (name, h, an.soundfiledur)
+                if segs and segs[-1][0] == kind:
+                    segs[-1][1].append(row)
+                else:
+                    segs.append((kind, [row]))
+            return _Chunk(seq, [self._dispatch_wavs(rows) if kind == "wav"
+                                else self._dispatch_pre(rows)
+                                for kind, rows in segs])
 
     def _stage_chunk(self, sigs: list):
         """Pad a chunk's signals into one (Bp, blen) batch: the chunk-max
@@ -324,22 +335,24 @@ class DeviceIngest:
         Bp = P.next_pow2(len(sigs), max(8, self.ndev))
         Bp += -Bp % max(1, self.ndev)
         all_i16 = all(s.dtype == np.int16 for s in sigs if len(s))
-        batch = np.zeros((Bp, blen), np.int16 if all_i16 else np.float32)
-        lens = np.zeros(Bp, np.int32)
-        for row, s in enumerate(sigs):
-            if not all_i16 and s.dtype == np.int16:
-                s = s.astype(np.float32) / float(1 << 15)
-            batch[row, : len(s)] = s
-            lens[row] = len(s)
+        with timing.span("ingest.stage"):
+            batch = np.zeros((Bp, blen), np.int16 if all_i16 else np.float32)
+            lens = np.zeros(Bp, np.int32)
+            for row, s in enumerate(sigs):
+                if not all_i16 and s.dtype == np.int16:
+                    s = s.astype(np.float32) / float(1 << 15)
+                batch[row, : len(s)] = s
+                lens[row] = len(s)
         return batch, lens
 
     def _dispatch_wavs(self, rows):
         names = [n for n, _, _ in rows]
         durs = [dur for _, _, dur in rows]
         batch, lens = self._stage_chunk([d for _, d, _ in rows])
-        ids = np.zeros(len(lens), np.int32)
-        for row, name in enumerate(names):
-            ids[row] = self._assign_id(name, None)
+        with timing.span("ingest.ids"):
+            ids = np.zeros(len(lens), np.int32)
+            for row, name in enumerate(names):
+                ids[row] = self._assign_id(name, None)
         pcfg = self.analyzer.config
         # the ok flag is a notion of the mesh's routing
         static = ((pcfg, self.cfg) if self.mesh is None else
@@ -363,16 +376,19 @@ class DeviceIngest:
         B = len(rows)
         L = P.next_pow2(max(1, max(len(h) for _, h, _ in rows)), 256)
         Bp = P.next_pow2(B, 8)
-        tt = np.zeros((Bp, L), np.int32)
-        hh = np.zeros((Bp, L), np.int32)
-        vv = np.zeros((Bp, L), bool)
-        ids = np.zeros(Bp, np.int32)
-        for b, (name, h, _dur) in enumerate(rows):
-            h = np.asarray(h).reshape(-1, 2)
-            ids[b] = self._assign_id(name, len(h))
-            tt[b, : len(h)] = h[:, 0]
-            hh[b, : len(h)] = h[:, 1]
-            vv[b, : len(h)] = True
+        hs = [np.asarray(h).reshape(-1, 2) for _, h, _ in rows]
+        with timing.span("ingest.ids"):
+            ids = np.zeros(Bp, np.int32)
+            for b, (row, h) in enumerate(zip(rows, hs)):
+                ids[b] = self._assign_id(row[0], len(h))
+        with timing.span("ingest.stage"):
+            tt = np.zeros((Bp, L), np.int32)
+            hh = np.zeros((Bp, L), np.int32)
+            vv = np.zeros((Bp, L), bool)
+            for b, h in enumerate(hs):
+                tt[b, : len(h)] = h[:, 0]
+                hh[b, : len(h)] = h[:, 1]
+                vv[b, : len(h)] = True
         return tt, hh, vv, ids
 
     def consume_chunk(self, handle) -> list:
@@ -381,21 +397,23 @@ class DeviceIngest:
         overflow on a mesh (ok == 0) replays that segment's audio through
         a separate fingerprint and the replicated store: bit-identical,
         since the overflowing pass masked all its writes."""
-        out = []
-        for kind, names, durs, cnt, ids, batch, lens in handle:
-            if kind == "pre":
-                out.extend(zip(names, cnt, durs))
-                continue
-            cnt = cnt.cpu().numpy()
-            if self.mesh is not None:
-                cnt, ok = cnt[:-1], int(cnt[-1])
-                if not ok:
-                    cnt = self._replay_overflow(batch, lens, ids)
-            for row, (name, dur) in enumerate(zip(names, durs)):
-                n = int(cnt[row])
-                self.ht.hashesperid[ids[row]] += n
-                out.append((name, n, dur))
-        return out
+        with timing.span("ingest.consume", id=handle.seq):
+            out = []
+            for kind, names, durs, cnt, ids, batch, lens in handle:
+                if kind == "pre":
+                    out.extend(zip(names, cnt, durs))
+                    continue
+                with timing.span("ingest.counts_fetch"):
+                    cnt = cnt.cpu().numpy()
+                if self.mesh is not None:
+                    cnt, ok = cnt[:-1], int(cnt[-1])
+                    if not ok:
+                        cnt = self._replay_overflow(batch, lens, ids)
+                for row, (name, dur) in enumerate(zip(names, durs)):
+                    n = int(cnt[row])
+                    self.ht.hashesperid[ids[row]] += n
+                    out.append((name, n, dur))
+            return out
 
     def _replay_overflow(self, batch, lens, ids):
         """The routing-cap overflow's way round (_replay_step): every shard
@@ -406,11 +424,17 @@ class DeviceIngest:
         cnt = self._run(self._replay, (batch, lens, ids),
                         (self.mesh, pcfg, self.cfg),
                         _ingest_bytes(*batch.shape, pcfg))
-        return cnt.cpu().numpy()
+        with timing.span("ingest.counts_fetch"):
+            return cnt.cpu().numpy()
 
     # -- finalize ---------------------------------------------------------
 
     def finalize(self) -> None:
+        """Download the device state into the host table (_download)."""
+        with timing.span("ingest.finalize"):
+            self._download()
+
+    def _download(self) -> None:
         """Download the device state into the host table.
 
         A fresh ingest fills a small share of the n_buckets x depth grid,
@@ -457,6 +481,15 @@ class DeviceIngest:
         self.ht.counts = counts.astype(np.int32)
         self.ht.dirty = True
         self.ht.rev += 1
+
+
+class _Chunk(list):
+    """dispatch_chunk's handle: the chunk's segments, and its sequence
+    number, the id of its spans."""
+
+    def __init__(self, seq: int, segments: list):
+        super().__init__(segments)
+        self.seq = seq
 
 
 def _compact_slots(table: torch.Tensor, counts: torch.Tensor,

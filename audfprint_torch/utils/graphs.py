@@ -60,6 +60,14 @@ processes runs eagerly.
 No fallback: on a CUDA device a failed capture or replay raises.  A CPU
 device, which a caller asks for by name, captures nothing and runs the
 function directly.
+
+Tracing (utils/timing): a replay is the span "graph.pin" (every host
+input made contiguous and pinned; the counter "graph.h2d_bytes" adds
+their bytes), then "graph.launch" (the copies into the static inputs
+queued, the replay, the output clones); a key's warm-up run and capture
+add their seconds to the process-wide one-time event "graph.capture".
+The kernel library is loaded (built, in a fresh checkout) before that
+clock starts, so the event holds no compiler time.
 """
 
 from __future__ import annotations
@@ -72,8 +80,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from audfprint_torch.ops import _build
+from audfprint_torch.utils import timing
+
 # process-wide: keys captured, graph replays, and clears made by the
-# budget rule (the CLI's --json-metrics records them)
+# budget rule (the CLI's --json-metrics records them); a capture's seconds
+# are the one-time event "graph.capture" (utils/timing)
 counts = {"captures": 0, "replays": 0, "budget_clears": 0}
 
 
@@ -208,6 +220,7 @@ def _staged(a, device: torch.device) -> torch.Tensor:
     it is, a host numpy array in pinned memory."""
     if isinstance(a, torch.Tensor):
         return a
+    timing.count("graph.h2d_bytes", a.nbytes)
     t = torch.from_numpy(np.ascontiguousarray(a))
     return t.pin_memory() if device.type == "cuda" else t
 
@@ -328,12 +341,15 @@ class GraphCache:
         entry = self._entries.get(key)
         if entry is None:
             return self._capture(key, inputs, state, static)
-        for buf, a in zip(entry.inputs, inputs):
-            buf.copy_(_staged(a, dev), non_blocking=True)
-        entry.graph.replay()
-        counts["replays"] += 1
-        self._add_launches(entry.launches)
-        return _clone(entry.out)
+        with timing.span("graph.pin"):
+            srcs = [_staged(a, dev) for a in inputs]
+        with timing.span("graph.launch"):
+            for buf, src in zip(entry.inputs, srcs):
+                buf.copy_(src, non_blocking=True)
+            entry.graph.replay()
+            counts["replays"] += 1
+            self._add_launches(entry.launches)
+            return _clone(entry.out)
 
     def _launch_snapshot(self) -> dict:
         return {(i, k): n for i, d in enumerate(self.counters)
@@ -351,6 +367,8 @@ class GraphCache:
         if not sh.live():
             # no graph is left in the pool: start a new one
             sh.pool, sh.pool_bytes = None, 0
+        if dev.type == "cuda":
+            _build.load()
         t0 = time.perf_counter()
         bufs = []
         for a in inputs:
@@ -370,8 +388,10 @@ class GraphCache:
         launches = {k: n - before.get(k, 0) for k, n in after.items()
                     if n != before.get(k, 0)}
         self._add_launches({k: -n for k, n in launches.items()})
+        capture_s = time.perf_counter() - t0
+        timing.event("graph.capture", capture_s)
         self._entries[key] = _Entry(
-            bufs, graph, static_out, launches, time.perf_counter() - t0,
+            bufs, graph, static_out, launches, capture_s,
             grown, sum(b.numel() * b.element_size() for b in bufs))
         sh.pool_bytes += grown
         counts["captures"] += 1

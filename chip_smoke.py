@@ -1709,6 +1709,16 @@ FP_KERNELS = GRAPH_KERNELS[:3]
 TORCH_SCAN = "scan_innermost_dim"
 
 
+def _device_events(torch, prof) -> list:
+    """The device's kernels, copies and memsets of a profile: its CUDA
+    events less the program's spans (utils/timing), each of which also
+    shows on the device's timeline as a user annotation over the work it
+    launched."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _cuda_events(torch, fn, kernels=GRAPH_KERNELS + (TORCH_SCAN,)
                  ) -> tuple:
     """(device events, device busy ms, {kernel: events whose name holds
@@ -1734,8 +1744,7 @@ def _cuda_events(torch, fn, kernels=GRAPH_KERNELS + (TORCH_SCAN,)
             fn()
             torch.cuda.synchronize()
             time.sleep(0.02)
-        ev = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        ev = _device_events(torch, prof)
         if ev:
             break
         print(f"torch.profiler recorded no device event (attempt "
@@ -2433,10 +2442,9 @@ def _cuda_top(torch, fn, n: int = 6) -> list:
         fn()
         torch.cuda.synchronize()
     by: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            c, t = by.get(e.name, (0, 0.0))
-            by[e.name] = (c + 1, t + e.device_time / 1e3)
+    for e in _device_events(torch, prof):
+        c, t = by.get(e.name, (0, 0.0))
+        by[e.name] = (c + 1, t + e.device_time / 1e3)
     top = sorted(by.items(), key=lambda kv: -kv[1][1])[:n]
     return [(name[:48], c, round(t, 3)) for name, (c, t) in top]
 

@@ -1,0 +1,13 @@
+"""Host milliseconds a call of the program's span 'ingest.counts_fetch'
+(the blocking fetch of a chunk's per-file counts), from the process-wide
+tracer of audfprint_torch.utils.timing, which records while the traced
+span's profiler runs: its total over its calls, one call a chunk in the
+ingest cell.  None where the program has no such tracer or the span
+never ran."""
+
+from audfprint_torch.utils import timing
+
+
+def read(rec):
+    tracer = getattr(timing, "TRACER", None)
+    return None if tracer is None else tracer.mean_ms("ingest.counts_fetch")

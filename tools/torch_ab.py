@@ -137,7 +137,13 @@ def _child(root: str, wav: str, npy: str, out: str | None) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         w, _h = stream()
-    spans = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    # the program's spans also show on the device's timeline as user
+    # annotations over the work they launched: not device work
+    def device(e):
+        return (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+
+    spans = [e for e in p.events() if device(e)]
     res["stream_device_events"] = len(spans)
     res["stream_device_ms"] = sum(e.time_range.elapsed_us()
                                   for e in spans) / 1e3
@@ -153,8 +159,7 @@ def _child(root: str, wav: str, npy: str, out: str | None) -> dict:
                              ProfilerActivity.CUDA]) as p:
         an.samples_batch2hashes(query)
         torch.cuda.synchronize()
-    res["query_device_events"] = sum(e.device_type == DeviceType.CUDA
-                                     for e in p.events())
+    res["query_device_events"] = sum(device(e) for e in p.events())
     return res
 
 
