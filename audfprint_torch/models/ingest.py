@@ -35,6 +35,7 @@ source, which keeps the file-major insertion order of every bucket.
 from __future__ import annotations
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -216,12 +217,22 @@ class DeviceIngest:
     mesh's routing cap (None = the cap with 2x headroom); it is part of
     the routed ingest's key.
 
+    A chunk of audio is staged in a slot (_Slot) that holds its padded
+    batch, lengths and ids and gets its counts back: pinned host memory
+    on a CUDA device, which the graph copies from directly, the counts
+    copied back right after the chunk's own replay and an event recorded
+    after them.  Its rows are copied in blocks on torch.get_num_threads()
+    threads.  A slot is taken again by a later chunk of its key once its
+    handle has been consumed; at most two free slots are kept.
+
     Spans (utils/timing), each chunk's sharing its sequence number as
-    their id: ingest.dispatch over ingest.stage (the padded batch, or the
-    padded host hashes), ingest.ids (id assignment) and the graph
-    cache's graph.pin / graph.launch; ingest.consume over
-    ingest.counts_fetch (the blocking fetch of the counts); and
-    ingest.finalize."""
+    their id: ingest.dispatch over ingest.slot_wait (the wait for a
+    reused slot's event), ingest.stage (the padded batch, or the padded
+    host hashes), ingest.ids (id assignment) and the graph cache's
+    graph.pin / graph.launch; ingest.consume over ingest.counts_fetch
+    (the wait for the slot's event, or a blocking fetch); and
+    ingest.finalize.  Counters: ingest.slot_made and ingest.slot_reused,
+    one of them a chunk of audio."""
 
     def __init__(self, ht, analyzer, ndev: int = 1,
                  cap_override: int | None = None):
@@ -252,7 +263,7 @@ class DeviceIngest:
                                             counters)
             self._replay = graphs.GraphCache(_replay_step, dev, counters)
         else:
-            self.mesh = None
+            self.mesh, dev = None, self.device
             if fresh:
                 self.table, self.counts = DT.empty_table(self.cfg,
                                                          self.device)
@@ -266,6 +277,9 @@ class DeviceIngest:
                                             counters)
         self.replays = 0            # chunks replayed after a cap overflow
         self.seq = 0                # chunks dispatched: the id of their spans
+        self._pinned = dev.type == "cuda"   # pinned slots for the graphs
+        self._free: list = []       # free slots, least recently used first
+        self._pool = None           # the threads that stage a chunk's rows
 
     def _run(self, cache, inputs, static, nbytes: int):
         """cache's function on `inputs` and the table: its graph's replay
@@ -327,39 +341,61 @@ class DeviceIngest:
                                 else self._dispatch_pre(rows)
                                 for kind, rows in segs])
 
-    def _stage_chunk(self, sigs: list):
-        """Pad a chunk's signals into one (Bp, blen) batch: the chunk-max
-        bucket, strict file order (no length regrouping: the store depends
-        on in-order rows), Bp a power of two and a multiple of ndev."""
+    def _stage_chunk(self, sigs: list) -> "_Slot":
+        """Pad a chunk's signals into a slot's (Bp, blen) batch: the
+        chunk-max bucket, strict file order (no length regrouping: the
+        store depends on in-order rows), Bp a power of two and a multiple
+        of ndev; int16 PCM, or float32 when the chunk mixes dtypes."""
         blen = _bucket_len(max(len(s) for s in sigs))
         Bp = P.next_pow2(len(sigs), max(8, self.ndev))
         Bp += -Bp % max(1, self.ndev)
         all_i16 = all(s.dtype == np.int16 for s in sigs if len(s))
+        slot = self._take_slot(
+            (Bp, blen, torch.int16 if all_i16 else torch.float32))
+        nthreads = torch.get_num_threads()
+        if self._pool is None and nthreads > 1:
+            self._pool = ThreadPoolExecutor(nthreads, "ingest-stage")
         with timing.span("ingest.stage"):
-            batch = np.zeros((Bp, blen), np.int16 if all_i16 else np.float32)
-            lens = np.zeros(Bp, np.int32)
-            for row, s in enumerate(sigs):
-                if not all_i16 and s.dtype == np.int16:
-                    s = s.astype(np.float32) / float(1 << 15)
-                batch[row, : len(s)] = s
-                lens[row] = len(s)
-        return batch, lens
+            slot.fill(sigs, self._pool, nthreads)
+        return slot
+
+    def _take_slot(self, key: tuple) -> "_Slot":
+        """A free slot of `key` ((Bp, blen, dtype)), the most recently
+        freed first, once its event has passed; else a new one."""
+        for i in range(len(self._free) - 1, -1, -1):
+            if self._free[i].key == key:
+                slot = self._free.pop(i)
+                timing.count("ingest.slot_reused", 1)
+                with timing.span("ingest.slot_wait"):
+                    slot.wait()
+                return slot
+        timing.count("ingest.slot_made", 1)
+        # a mesh's counts carry the ok flag
+        return _Slot(key, key[0] + (self.mesh is not None), self._pinned)
+
+    def _release(self, slot: "_Slot") -> None:
+        """A consumed chunk's slot is free again; past two free slots the
+        least recently used one goes."""
+        self._free.append(slot)
+        del self._free[:-2]
 
     def _dispatch_wavs(self, rows):
         names = [n for n, _, _ in rows]
         durs = [dur for _, _, dur in rows]
-        batch, lens = self._stage_chunk([d for _, d, _ in rows])
+        slot = self._stage_chunk([d for _, d, _ in rows])
         with timing.span("ingest.ids"):
-            ids = np.zeros(len(lens), np.int32)
+            ids = slot.ids_np
+            ids[len(names):] = 0
             for row, name in enumerate(names):
                 ids[row] = self._assign_id(name, None)
         pcfg = self.analyzer.config
         # the ok flag is a notion of the mesh's routing
         static = ((pcfg, self.cfg) if self.mesh is None else
                   (self.mesh, pcfg, self.cfg, self.cap_override))
-        cnt_ok = self._run(self._ingest, (batch, lens, ids), static,
-                           _ingest_bytes(*batch.shape, pcfg))
-        return ("wav", names, durs, cnt_ok, ids, batch, lens)
+        cnt_ok = self._run(self._ingest, slot.inputs(), static,
+                           _ingest_bytes(*slot.batch.shape, pcfg))
+        slot.fetch(cnt_ok)
+        return ("wav", names, durs, cnt_ok, slot)
 
     def _dispatch_pre(self, rows):
         """Host (t, hash) arrays -> one store_batch pass (replicated
@@ -370,7 +406,7 @@ class DeviceIngest:
         self._run(self._store, (tt, hh, vv, ids), static,
                   DT.store_bytes(hh.size))
         return ("pre", [n for n, _, _ in rows], [d for _, _, d in rows],
-                [len(h) for _, h, _ in rows], None, None, None)
+                [len(h) for _, h, _ in rows], None)
 
     def _pad_hashes(self, rows):
         B = len(rows)
@@ -393,37 +429,41 @@ class DeviceIngest:
 
     def consume_chunk(self, handle) -> list:
         """Resolve a dispatch_chunk handle -> ordered (name, nhash, dur)
-        rows; one small counts fetch per fused segment.  A routing-cap
-        overflow on a mesh (ok == 0) replays that segment's audio through
-        a separate fingerprint and the replicated store: bit-identical,
-        since the overflowing pass masked all its writes."""
+        rows; each fused segment waits for its slot's counts.  A
+        routing-cap overflow on a mesh (ok == 0) replays that segment's
+        audio from its slot through a separate fingerprint and the
+        replicated store: bit-identical, since the overflowing pass masked
+        all its writes.  The slot is free again after."""
         with timing.span("ingest.consume", id=handle.seq):
             out = []
-            for kind, names, durs, cnt, ids, batch, lens in handle:
+            for kind, names, durs, cnt, slot in handle:
                 if kind == "pre":
                     out.extend(zip(names, cnt, durs))
                     continue
                 with timing.span("ingest.counts_fetch"):
-                    cnt = cnt.cpu().numpy()
+                    slot.wait()
+                cnt = slot.counts_np
                 if self.mesh is not None:
                     cnt, ok = cnt[:-1], int(cnt[-1])
                     if not ok:
-                        cnt = self._replay_overflow(batch, lens, ids)
+                        cnt = self._replay_overflow(slot)
                 for row, (name, dur) in enumerate(zip(names, durs)):
                     n = int(cnt[row])
-                    self.ht.hashesperid[ids[row]] += n
+                    self.ht.hashesperid[slot.ids_np[row]] += n
                     out.append((name, n, dur))
+                self._release(slot)
             return out
 
-    def _replay_overflow(self, batch, lens, ids):
+    def _replay_overflow(self, slot: "_Slot"):
         """The routing-cap overflow's way round (_replay_step): every shard
-        fingerprints its block again and the whole chunk's streams go
-        through the replicated store."""
+        fingerprints its block again from the slot and the whole chunk's
+        streams go through the replicated store.  The blocking fetch
+        waits for the replay, so the slot has been read when it returns."""
         self.replays += 1
         pcfg = self.analyzer.config
-        cnt = self._run(self._replay, (batch, lens, ids),
+        cnt = self._run(self._replay, slot.inputs(),
                         (self.mesh, pcfg, self.cfg),
-                        _ingest_bytes(*batch.shape, pcfg))
+                        _ingest_bytes(*slot.batch.shape, pcfg))
         with timing.span("ingest.counts_fetch"):
             return cnt.cpu().numpy()
 
@@ -490,6 +530,78 @@ class _Chunk(list):
     def __init__(self, seq: int, segments: list):
         super().__init__(segments)
         self.seq = seq
+
+
+class _Slot:
+    """One in-flight chunk's host side, reused by later chunks of its key
+    (Bp, blen, dtype): the (Bp, blen) batch, the (Bp,) lengths and ids
+    the graph copies to the device, and the counts (ncounts,) it copies
+    back, pinned for a CUDA device, with the event recorded after that
+    copy (none on the CPU, where every copy is done when it returns).
+    `written[r]` is how far the last chunk staged here wrote row r, so
+    a later chunk zeroes only what it no longer covers."""
+
+    def __init__(self, key: tuple, ncounts: int, pinned: bool):
+        Bp, blen, dtype = self.key = key
+        self.batch = torch.zeros((Bp, blen), dtype=dtype, pin_memory=pinned)
+        self.lens = torch.zeros(Bp, dtype=torch.int32, pin_memory=pinned)
+        self.ids = torch.zeros(Bp, dtype=torch.int32, pin_memory=pinned)
+        self.counts = torch.zeros(ncounts, dtype=torch.int32,
+                                  pin_memory=pinned)
+        self.event = torch.cuda.Event() if pinned else None
+        self.written = np.zeros(Bp, np.int64)
+        # the same memory as numpy arrays, for the host's writes and reads
+        self.batch_np, self.lens_np = self.batch.numpy(), self.lens.numpy()
+        self.ids_np, self.counts_np = self.ids.numpy(), self.counts.numpy()
+
+    def inputs(self) -> tuple:
+        return self.batch, self.lens, self.ids
+
+    def fill(self, sigs: list, pool=None, nblocks: int = 1) -> None:
+        """Row r of the batch holds sigs[r] and zeros after it, rows past
+        the chunk zeros; int16 rows of a float32 batch are scaled to
+        [-1, 1) as the analyzer scales PCM.  With a thread pool the rows
+        are cut into `nblocks` contiguous blocks copied side by side
+        (NumPy's copies release the interpreter lock)."""
+        to_float = self.batch.dtype == torch.float32
+        b, w, lens = self.batch_np, self.written, self.lens_np
+
+        def put(lo: int, hi: int) -> None:
+            for row in range(lo, hi):
+                if row >= len(sigs):
+                    b[row, : w[row]] = 0
+                    w[row] = lens[row] = 0
+                    continue
+                s = sigs[row]
+                if to_float and s.dtype == np.int16:
+                    s = s.astype(np.float32) / float(1 << 15)
+                n = len(s)
+                b[row, :n] = s
+                if w[row] > n:
+                    b[row, n: w[row]] = 0
+                w[row] = lens[row] = n
+
+        Bp = len(w)
+        if pool is None or nblocks < 2:
+            put(0, Bp)
+            return
+        step = -(-Bp // nblocks)
+        for f in [pool.submit(put, lo, min(Bp, lo + step))
+                  for lo in range(0, Bp, step)]:
+            f.result()
+
+    def fetch(self, counts: torch.Tensor) -> None:
+        """Queue the copy of a chunk's counts into the slot, on the stream
+        that computed them, and the event after it."""
+        self.counts.copy_(counts, non_blocking=True)
+        if self.event is not None and counts.is_cuda:
+            self.event.record(torch.cuda.current_stream(counts.device))
+
+    def wait(self) -> None:
+        """Until the last chunk's counts are in the slot, and its inputs
+        read."""
+        if self.event is not None:
+            self.event.synchronize()
 
 
 def _compact_slots(table: torch.Tensor, counts: torch.Tensor,

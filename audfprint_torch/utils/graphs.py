@@ -25,9 +25,11 @@ An entry holds the static input buffers, the graph and its static output
 (a tensor, a tuple of tensors, or None).  Host numpy inputs are staged
 through pinned host memory and copied without blocking; the caching host
 allocator keeps a pinned block until the copy that reads it has run, so
-the next call's staging cannot overwrite it.  Device tensor inputs (the
-streamed route's chunk rows and carries) are copied device to device on
-the stream.
+the next call's staging cannot overwrite it.  A host tensor input is
+copied from as it is: the caller's own pinned staging, which it keeps
+until the copy has run (models/ingest's slots).  Device tensor inputs
+(the streamed route's chunk rows and carries) are copied device to
+device on the stream.
 
 The first call of a key runs the function once eagerly on a side stream
 (the warm-up), captures it, and returns the warm-up run's own output: a
@@ -62,12 +64,12 @@ device, which a caller asks for by name, captures nothing and runs the
 function directly.
 
 Tracing (utils/timing): a replay is the span "graph.pin" (every host
-input made contiguous and pinned; the counter "graph.h2d_bytes" adds
-their bytes), then "graph.launch" (the copies into the static inputs
-queued, the replay, the output clones); a key's warm-up run and capture
-add their seconds to the process-wide one-time event "graph.capture".
-The kernel library is loaded (built, in a fresh checkout) before that
-clock starts, so the event holds no compiler time.
+array made contiguous and pinned; the counter "graph.h2d_bytes" adds the
+bytes of every host input), then "graph.launch" (the copies into the
+static inputs queued, the replay, the output clones); a key's warm-up
+run and capture add their seconds to the process-wide one-time event
+"graph.capture".  The kernel library is loaded (built, in a fresh
+checkout) before that clock starts, so the event holds no compiler time.
 """
 
 from __future__ import annotations
@@ -216,9 +218,12 @@ def _record(fn, device: torch.device, pool):
 
 
 def _staged(a, device: torch.device) -> torch.Tensor:
-    """An input ready to copy into its static buffer: a device tensor as
-    it is, a host numpy array in pinned memory."""
+    """An input ready to copy into its static buffer: a tensor as it is
+    (a host tensor is the caller's own, pinned, staging: its bytes are
+    counted), a host numpy array in pinned memory."""
     if isinstance(a, torch.Tensor):
+        if a.device.type == "cpu":
+            timing.count("graph.h2d_bytes", a.numel() * a.element_size())
         return a
     timing.count("graph.h2d_bytes", a.nbytes)
     t = torch.from_numpy(np.ascontiguousarray(a))

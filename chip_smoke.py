@@ -2644,7 +2644,8 @@ def mesh_graphs(torch, ctx, dev, ndev: int, chunk: int,
         k: [round(audio / w, 1) for w in v] for k, v in walls.items()}
     out["mesh_keys"]["routed ingest"] = _key_mib(ing._ingest)
     ing_t = DeviceIngest(HashTable(), Analyzer(device=dev), ndev)
-    batch, lens = ing_t._stage_chunk(tracks[:chunk])
+    slot = ing_t._stage_chunk(tracks[:chunk])
+    batch, lens = slot.batch, slot.lens
     ids = np.arange(len(lens), dtype=np.int32)
     st_i = (ing_t.table, ing_t.counts)
     static = (ing_t.mesh, an.config, ing_t.cfg, None)
@@ -3089,6 +3090,136 @@ def _key_shapes(key) -> list:
     return [shape for shape, _dt in key[0]]
 
 
+def _numpy_staged_store(an, chunks: list):
+    """The device store with each chunk staged as it was before the
+    pinned slots: a fresh zeroed NumPy batch, handed to the graph cache
+    as host arrays (pinned there by a second copy), the counts fetched
+    with a blocking copy; chunk by chunk -> (host table, each chunk's
+    counts)."""
+    from audfprint_torch import params as P
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.models import ingest as ING
+    from audfprint_torch.models.analyzer import _bucket_len
+
+    ht = HashTable()
+    ing = ING.DeviceIngest(ht, an)
+    pcfg, got = an.config, []
+    for c in chunks:
+        sigs = [x for _n, _k, x in c]
+        batch = np.zeros((P.next_pow2(len(sigs), 8),
+                          _bucket_len(max(map(len, sigs)))), np.int16)
+        lens = np.zeros(len(batch), np.int32)
+        ids = np.zeros(len(batch), np.int32)
+        for row, (name, _k, x) in enumerate(c):
+            batch[row, : len(x)] = x
+            lens[row] = len(x)
+            ids[row] = ing._assign_id(name, None)
+        cnt = ing._run(ing._ingest, (batch, lens, ids), (pcfg, ing.cfg),
+                       ING._ingest_bytes(*batch.shape, pcfg))
+        cnt = cnt.cpu().numpy()[: len(sigs)]
+        for row in range(len(sigs)):
+            ht.hashesperid[ids[row]] += int(cnt[row])
+        got.append(cnt)
+    ing.finalize()
+    return ht, got
+
+
+def device_store_slots(torch, an, tracks: list, dev) -> dict:
+    """The device store through its reused pinned slots (DeviceIngest one
+    chunk ahead, as `new --device-store`) over four int16 chunks of one
+    key, the third shorter and with fewer rows than the second (its slot's
+    stale tails and spare rows zeroed): the table, counts and each chunk's
+    counts equal the same chunks staged through NumPy
+    (_numpy_staged_store); 2 slots made and 2 reused; every replay's
+    graph.pin span under 0.5 ms (no second copy of the batch); and, in a
+    profiled pass, every chunk's counts copy starting before the next
+    chunk's first device operation (tools/ingest_trace.fetch_order)."""
+    import importlib.util
+
+    from audfprint_torch.index.hash_table import HashTable
+    from audfprint_torch.models.ingest import DeviceIngest
+    from audfprint_torch.utils import timing
+
+    pcm = [to_pcm(x) for x in tracks[:968]]
+    cut = int(25.0 * SR)                 # the same bucket as 30 s
+    rows = ([(f"a{i}", x) for i, x in enumerate(pcm[:256])]
+            + [(f"b{i}", x) for i, x in enumerate(pcm[256:512])]
+            + [(f"c{i}", x[:cut]) for i, x in enumerate(pcm[512:712])]
+            + [(f"d{i}", x) for i, x in enumerate(pcm[712:968])])
+    bounds = (0, 256, 512, 712, 968)
+    chunks = [[(n, "wav", x) for n, x in rows[a:b]]
+              for a, b in zip(bounds, bounds[1:])]
+    want, want_cnt = _numpy_staged_store(an, chunks)
+
+    def one_ahead(ing):
+        out, handle = [], None
+        for c in chunks:
+            h = ing.dispatch_chunk(c, print)
+            if handle is not None:
+                out.append([n for _name, n, _d in ing.consume_chunk(handle)])
+            handle = h
+        out.append([n for _name, n, _d in ing.consume_chunk(handle)])
+        return out
+
+    saved = timing.TRACER
+    timing.TRACER = tr = timing.Tracer()
+    tr.on = True
+    try:
+        ht = HashTable()
+        ing = DeviceIngest(ht, an)
+        got_cnt = one_ahead(ing)
+        ing.finalize()
+    finally:
+        tr.on = False
+        timing.TRACER = saved
+    require(_tables_equal(ht, want),
+            "the device store through pinned slots differs from the same "
+            "chunks staged through NumPy")
+    require(all(np.array_equal(g, w) for g, w in zip(got_cnt, want_cnt)),
+            "a chunk's counts through pinned slots differ from the NumPy "
+            "path's")
+    made = tr.counters.get("ingest.slot_made", 0)
+    reused = tr.counters.get("ingest.slot_reused", 0)
+    require(made == 2 and reused == 2,
+            f"one ahead over 4 chunks of one key made {made} slots and "
+            f"reused {reused}, not 2 and 2")
+    pins = [(b - a) / 1e6 for name, _i, _p, a, b in tr.records
+            if name == "graph.pin"]
+    require(len(pins) == 3 and max(pins) < 0.5,
+            f"graph.pin of the 3 replays took {pins} ms, not all under 0.5")
+
+    spec = importlib.util.spec_from_file_location(
+        "ingest_trace", os.path.join(ROOT, "tools", "ingest_trace.py"))
+    it = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(it)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_ahead(ing)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            order = it.fetch_order(json.load(f).get("traceEvents", []))
+    require(len(order) == len(chunks) - 1
+            and all(o["before_next_work"] for o in order),
+            f"a chunk's counts copy did not start before the next chunk's "
+            f"device work: {order}")
+    del ing
+    print(f"device store through pinned slots [{nvidia_smi_line()}]: "
+          f"{len(chunks)} int16 chunks (256, 256, 200 x 25 s, 256) equal "
+          f"the NumPy staging's table and counts; slots made {made}, reused "
+          f"{reused}; graph.pin of the replays "
+          f"{[round(p, 4) for p in pins]} ms; counts copy ahead of the "
+          f"next chunk's work by own gap "
+          f"{[round(o['own_gap_ms'], 4) for o in order]} ms")
+    return {"slot_graph_pin_ms_max": max(pins),
+            "slot_counts_own_gap_ms_max": max(o["own_gap_ms"]
+                                              for o in order)}
+
+
 def phase_device_store(torch, rec: dict, tracks: list, ht_host,
                        t_two_stage: float, dev, chunk: int = 256,
                        rounds: int = 3) -> dict:
@@ -3170,6 +3301,7 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
           f"{audio / t_two_stage:.1f} audio-s/s); table, counts and "
           f"hashesperid equal the host store's; launches {launches}; one "
           f"replay ran {seen} (torch.profiler)")
+    slots = device_store_slots(torch, an, tracks, dev)
 
     rate = {"eager": [], "replay": []}
     steady = {"eager": [], "replay": []}
@@ -3188,8 +3320,9 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
           f"{len(chunks)} eager {[round(x, 1) for x in steady['eager']]}, "
           f"replay {[round(x, 1) for x in steady['replay']]}")
 
-    # where a chunk's wall goes: the host's padded batch, its pinned
-    # staging, the dispatch (both included) and the wait for the counts
+    # where a chunk's wall goes: the host's padded batch in its pinned
+    # slot, the graph cache's staging of it (none: the slot is pinned),
+    # the dispatch (both included) and the wait for the counts
     from audfprint_torch.utils import graphs
     sigs1 = [x for _n, _k, x in chunks[1]]
     parts = {}
@@ -3201,9 +3334,10 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
             ms = []
             for _r in range(3):
                 t0 = time.perf_counter()
-                batch, _lens = ing._stage_chunk(sigs1)
+                slot = ing._stage_chunk(sigs1)
                 t1 = time.perf_counter()
-                graphs._staged(batch, dev)
+                graphs._staged(slot.batch, dev)
+                ing._release(slot)
                 torch.cuda.synchronize()
                 t2 = time.perf_counter()
                 handle = ing.dispatch_chunk(chunks[1], print)
@@ -3213,9 +3347,10 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
                 ms.append([1e3 * (t1 - t0), 1e3 * (t2 - t1), 1e3 * (t3 - t2),
                            1e3 * (t4 - t3)])
             parts[mode] = [round(float(v), 1) for v in np.median(ms, axis=0)]
-            del ing, batch
+            del ing, slot
     print(f"device store [{smi}]: one {len(sigs1)} x 30 s chunk, host ms "
-          f"(median of 3): pad the batch, stage it in pinned memory, "
+          f"(median of 3): pad the batch in its pinned slot, hand it to "
+          f"the graph cache, "
           f"dispatch_chunk (both included), consume_chunk's wait: eager "
           f"{parts['eager']}, replay {parts['replay']}")
 
@@ -3261,7 +3396,8 @@ def phase_device_store(torch, rec: dict, tracks: list, ht_host,
             "device_store_rate": rate, "device_store_steady_rate": steady,
             "ingest_key_capture_s": cap_s, "ingest_key_mib": held,
             "device_store_chunk_ms": parts,
-            "precompute_k_rate": pk_rate, "precompute_k_first_s": t_first}
+            "precompute_k_rate": pk_rate, "precompute_k_first_s": t_first,
+            **slots}
 
 
 def _sync(torch, dev) -> None:

@@ -185,8 +185,9 @@ def test_fused_ingest_matches_host(ndev):
     want = _host_reference(an, names, sigs, **SMALL)
     ht = HashTable(**SMALL)
     ing = ING.DeviceIngest(ht, an, ndev)
-    batch, _lens = ing._stage_chunk(sigs)
-    assert batch.shape[0] % ndev == 0 and batch.shape[0] == 8
+    slot = ing._stage_chunk(sigs)
+    assert slot.batch.shape[0] % ndev == 0 and slot.batch.shape[0] == 8
+    ing._release(slot)
     rows = ing.consume_chunk(ing.dispatch_chunk(
         [(n, "wav", d) for n, d in zip(names, sigs)], report=print))
     ing.finalize()

@@ -224,10 +224,12 @@ def ingests():
 def test_device_ingest_spans_once_a_chunk(ingests, graphed):
     """ingest.dispatch over ingest.stage and ingest.ids (and, through the
     graph cache, graph.pin then graph.launch after a key's first call,
-    which is the one-time event graph.capture, tracer on or off),
-    ingest.consume over ingest.counts_fetch, each once a chunk under the
-    chunk's sequence number; the table, counts, hashes per id and rows
-    equal the tracer-off run's."""
+    which is the one-time event graph.capture, tracer on or off; and
+    ingest.slot_wait where a chunk takes a slot again: the third, one
+    ahead, whose key is the first's), ingest.consume over
+    ingest.counts_fetch, each once a chunk under the chunk's sequence
+    number; the table, counts, hashes per id and rows equal the
+    tracer-off run's."""
     off, on = ingests[(graphed, False)], ingests[(graphed, True)]
     for k in ("table", "counts", "hpi"):
         np.testing.assert_array_equal(on[k], off[k])
@@ -240,7 +242,10 @@ def test_device_ingest_spans_once_a_chunk(ingests, graphed):
               ("graph.launch", "ingest.dispatch")]
     for seq in range(3):            # one key: captured, then replayed
         graph = replay if graphed and seq > 0 else []
-        want = [("ingest.stage", "ingest.dispatch"),
+        reused = [("ingest.slot_wait", "ingest.dispatch")] if seq == 2 \
+            else []
+        want = [*reused,
+                ("ingest.stage", "ingest.dispatch"),
                 ("ingest.ids", "ingest.dispatch"),
                 *graph,
                 ("ingest.dispatch", None),
@@ -251,6 +256,8 @@ def test_device_ingest_spans_once_a_chunk(ingests, graphed):
     s = on["tracer"].summary()
     assert s["spans"]["ingest.dispatch"]["calls"] == 3
     assert (s["counters"].get("graph.h2d_bytes", 0) > 0) == graphed
+    assert s["counters"]["ingest.slot_made"] == 2
+    assert s["counters"]["ingest.slot_reused"] == 1
     for tr in (off["tracer"], on["tracer"]):
         assert tr.events.get("graph.capture", [0, 0])[1] == int(graphed)
     assert "graph.capture" not in s["spans"]

@@ -19,14 +19,15 @@ zeroed table), warms the key, then:
   * split: one traced pass of the cell's traced chunks (its mix's
     `traced_chunks`, 8) under torch.profiler (CPU and CUDA activity) with the tracer's spans as its
     ranges: per chunk the ms of ingest.dispatch and its children
-    (ingest.stage, ingest.ids, graph.pin, graph.launch) and their self
-    time, of ingest.consume and ingest.counts_fetch, and the device's busy
-    ms in the span;
-  * fetch_order: for each consume of chunk i-1 made after chunk i's
-    dispatch, from the trace's timestamps (one clock for host ranges and
-    device events): when the device-to-host copy of its counts started,
-    against the start and end of chunk i's device work (the device
-    events that begin after chunk i's graph.launch range opened).
+    (ingest.slot_wait, ingest.stage, ingest.ids, graph.pin,
+    graph.launch) and their self time, of ingest.consume and
+    ingest.counts_fetch, and the device's busy ms in the span;
+  * fetch_order: for each chunk i-1 consumed after chunk i's dispatch,
+    from the trace's device events: when the device-to-host copy of its
+    counts started, against the end of its own chunk's device work and
+    the start and end of chunk i's (fetch_order below);
+  * slot_counters: the staging slots DeviceIngest made and reused in
+    the traced pass.
 
 Prints one `ingest_trace: {json}` line and writes the Chrome trace to DIR
 when --out is given.  Imports no JAX.
@@ -98,47 +99,54 @@ def per_chunk(tracer, names) -> dict:
 
 
 def fetch_order(events: list) -> list:
-    """For each counts fetch of chunk i-1 that follows chunk i's
-    graph.launch: its device-to-host copy's start against chunk i's
-    device work, all in ms from chunk i's graph.launch opening."""
+    """Each chunk's counts copy against the device work of its own chunk
+    and of the next, from the trace's device events.  A chunk's work runs
+    from its first host-to-device copy (its inputs) to the next chunk's;
+    the k-th device-to-host copy is chunk k's counts (one a chunk, in
+    consume order).  For each chunk i-1 whose copy and whose successor
+    i are in the trace, in ms:
+
+      own_gap_ms       the copy's start less the end of its own chunk's
+                       last device operation before it (a copy queued
+                       right after its chunk's graph: ~0);
+      next_gap_ms      its start less the end of chunk i's last device
+                       operation (a copy queued behind chunk i's graph:
+                       ~0, positive);
+      before_next_work whether it starts before chunk i's first device
+                       operation;
+      after_next_work  whether it starts after all of chunk i's."""
     dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
                   e.get("name", "?"), e.get("cat"))
                  for e in events if e.get("ph") == "X" and "dur" in e
                  and e.get("cat") in DEVICE_CATS)
-    host = {}
-    for e in events:
-        if e.get("cat") == "user_annotation" and e.get("ph") == "X":
-            host.setdefault(e["name"], []).append(
-                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-    launches = sorted(host.get("graph.launch", []))
-    fetches = sorted(host.get("ingest.counts_fetch", []))
+
+    def copy(d, way):
+        return d[3] == "gpu_memcpy" and way in d[2]
+
+    starts, prev_h2d = [], False
+    for i, d in enumerate(dev):
+        h2d = copy(d, "HtoD")
+        if h2d and not prev_h2d:
+            starts.append(i)
+        prev_h2d = h2d
+    bounds = starts + [len(dev)]
+    work = [[d for d in dev[a:b] if not copy(d, "DtoH")]
+            for a, b in zip(bounds, bounds[1:])]
+    d2h = [d for d in dev if copy(d, "DtoH")]
     out = []
-    for i, (la, lb) in enumerate(launches):
-        nxt = launches[i + 1][0] if i + 1 < len(launches) else float("inf")
-        # the fetch made after this launch and before the next one
-        fs = [f for f in fetches if la < f[0] < nxt]
-        if not fs:
+    for i in range(1, min(len(work), len(d2h) + 1)):
+        c0 = d2h[i - 1][0]
+        own = [d[1] for d in work[i - 1] if d[1] <= c0]
+        nxt = work[i]
+        if not own or not nxt:
             continue
-        fa, fb = fs[0]
-        d2h = [d for d in dev if d[3] == "gpu_memcpy" and "DtoH" in d[2]
-               and fa <= d[0] <= fb]
-        work = [d for d in dev if la <= d[0] < nxt and d not in d2h
-                and not (d[3] == "gpu_memcpy" and "DtoH" in d[2])]
-        if not d2h or not work:
-            continue
-        c0 = d2h[0][0]
-        before = [d for d in work if d[1] <= c0]
         out.append({
             "chunk": i, "fetch_of": i - 1,
-            "launch_close_ms": (lb - la) / 1e3,
-            "fetch_open_ms": (fa - la) / 1e3,
-            "fetch_close_ms": (fb - la) / 1e3,
-            "d2h_start_ms": (c0 - la) / 1e3,
-            "chunk_work_first_ms": (work[0][0] - la) / 1e3,
-            "chunk_work_last_end_ms": (max(d[1] for d in work) - la) / 1e3,
-            "work_events": len(work),
-            "work_events_before_d2h": len(before),
-            "d2h_after_all_chunk_work": len(before) == len(work)})
+            "own_gap_ms": (c0 - max(own)) / 1e3,
+            "next_gap_ms": (c0 - max(d[1] for d in nxt)) / 1e3,
+            "before_next_work": c0 < nxt[0][0],
+            "after_next_work": c0 >= max(d[1] for d in nxt),
+            "next_work_events": len(nxt)})
     return out
 
 
@@ -196,8 +204,9 @@ def main(argv=None) -> int:
         sync()
         window = time.perf_counter() - w0
     tr = timing.TRACER
-    names = ("ingest.dispatch", "ingest.stage", "ingest.ids", "graph.pin",
-             "graph.launch", "ingest.consume", "ingest.counts_fetch")
+    names = ("ingest.dispatch", "ingest.slot_wait", "ingest.stage",
+             "ingest.ids", "graph.pin", "graph.launch", "ingest.consume",
+             "ingest.counts_fetch")
     res["split_ms_a_chunk"] = per_chunk(tr, names)
     res["split_window_ms_a_chunk"] = 1e3 * window / nc
     d = res["split_ms_a_chunk"]
@@ -206,6 +215,8 @@ def main(argv=None) -> int:
         res[f"{k}.children_cover"] = (tot - d[k + ".self"]) / tot if tot \
             else None
     res["counters"] = dict(tr.counters)
+    res["slot_counters"] = {k: v for k, v in tr.counters.items()
+                            if k.startswith("ingest.slot_")}
     path = os.path.join(a.out or tmp, "ingest_trace.json")
     if a.out:
         os.makedirs(a.out, exist_ok=True)
