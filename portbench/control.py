@@ -4,11 +4,11 @@ states) put in the program's place, judged as a run's outputs are.
 
   python3 -m portbench.control --workload W --seeds 11,12,13
 
-prints one JSON line of readings a seed.  The control answers each pool
-query once and stores the whole collection: the same prompts as a run,
-without a window.  It has to come out as not correct (portbench/tests/
-test_pb_control.py holds that at a small size; PERF.md gives its readings on
-the card at the cell's own size).
+prints one JSON line of readings a seed.  Each kind's `control`
+(portbench/kinds/<kind>.py) gives the reference's outputs on the same
+inputs as a run, without a window.  The control has to come out as not
+correct (portbench/tests/test_pb_control.py holds that at a small size;
+PERF.md gives its readings on the card at the cell's own size).
 """
 
 from __future__ import annotations
@@ -19,42 +19,20 @@ import sys
 import tempfile
 import time
 
-import numpy as np
 import torch
 
-from portbench import drive, judge, run
+from portbench import drive, run
 from portbench.spans import Spans
 
 LOW = torch.bfloat16
 
 
-def control_outputs(cell: drive.Cell) -> tuple[dict, dict]:
-    """(outputs, inputs) of the bfloat16 reference on a cell's inputs."""
-    cfg, mix, dev = cell.cfg, cell.mix, cell.device
-    kind = mix["kind"]
-    n = int(mix["tracks"]) if kind == "ingest" else int(
-        cfg["corpus"]["tracks"])
-    tracks = drive.make_tracks(cell, n)
-    keys, tb = judge.reference_tables(tracks, n, cfg, dev, LOW)
-    inputs = {"cfg": cfg, "tracks": tracks}
-    if kind == "ingest":
-        stored = np.array([[i, len(k)] for i, k in enumerate(keys)],
-                          np.int64)
-        return {"table": tb, "n_table": n, "stored": stored}, inputs
-    pool = int(mix["batch"]) * int(mix["pool_batches"])
-    clips = drive.queries(cell, tracks, pool)
-    rows, nq = judge.reference_rows(tb, clips, cfg, dev, LOW)
-    inputs["clips"] = clips
-    answers = np.concatenate([np.arange(pool)[:, None], rows, nq[:, None]],
-                             axis=1)
-    return {"table": tb, "answers": answers}, inputs
-
-
 def readings(files: dict, seed: int, device) -> dict:
     cell = drive.Cell(files["cfg"], files["mix"], seed, 0.0, False, device,
                       tempfile.gettempdir(), Spans())
-    out, inp = control_outputs(cell)
-    return judge.JUDGES[files["mix"]["kind"]](out, inp, device)
+    traffic = run.kind(files["mix"]["kind"])
+    out, inp = traffic.control(cell, LOW)
+    return traffic.judge(out, inp, device)
 
 
 def main(argv: list) -> int:

@@ -1,13 +1,9 @@
-"""The comparison that decides `correct`: what the timed path produced
-against the plain reference (portbench/reference), which works the
-fingerprints, the table and the votes out again from the
-same inputs.  Each reading has a limit in portbench/limits/<cell>.json.
-
-The program's outputs come in as plain data:
-  table    the table the window wrote or read, as reference.table.Table
-  answers  (n, 6) int64 [pool index, id, filtered, mode dt, raw, hashes]
-           for every query resolved in the window (id -1: no match)
-  stored   (n, 2) int64 [track index, hashes] for every track ingested
+"""The comparisons that decide `correct`, shared by the kinds' judges
+(portbench/kinds/<kind>.py): what the timed path produced against the
+plain reference (portbench/reference), which works the fingerprints, the
+table and the votes out again from the same inputs.  Each reading has a
+limit in portbench/limits/<cell>.json.  The program's outputs come in as
+plain data, a table as reference.table.Table.
 """
 
 from __future__ import annotations
@@ -78,29 +74,3 @@ def reference_rows(tb: RT.Table, clips: list, cfg: dict, device,
                    search_depth=m.get("search_depth", 100))
     return (rows.cpu().numpy(),
             np.array([len(k) for k in qkeys], dtype=np.int64))
-
-
-def judge_backlog(out: dict, inp: dict, device, dtype=torch.float32) -> dict:
-    cfg = inp["cfg"]
-    n = len(inp["tracks"])
-    _keys, tb = reference_tables(inp["tracks"], n, cfg, device, dtype)
-    readings = table_readings(out["table"], tb, n)
-    rows, nq = reference_rows(tb, inp["clips"], cfg, device, dtype)
-    readings.update(answer_readings(out["answers"], rows, nq))
-    return readings
-
-
-def judge_ingest(out: dict, inp: dict, device, dtype=torch.float32) -> dict:
-    cfg = inp["cfg"]
-    keys, tb = reference_tables(inp["tracks"], out["n_table"], cfg, device,
-                                dtype)
-    readings = table_readings(out["table"], tb, out["n_table"])
-    nref = np.array([len(k) for k in keys], dtype=np.int64)
-    st = out["stored"]
-    readings["track_hashes_gap"] = float(
-        np.max(np.abs(st[:, 1] - nref[st[:, 0]]) / floor(nref[st[:, 0]]))
-    ) if len(st) else 0.0
-    return readings
-
-
-JUDGES = {"backlog": judge_backlog, "ingest": judge_ingest}

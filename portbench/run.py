@@ -8,10 +8,11 @@ the window runs, measures for S seconds, frees the program's state, runs
 the comparison with the plain reference, and prints one JSON line last.
 Everything a cell needs is found by name from BENCHMARK.json: the
 configuration in portbench/configs/<config>.json, the traffic in
-portbench/mixes/<traffic>.json (its "kind" names the driver in drive.py),
-the limits of the comparison in portbench/limits/<workload>.json and a
-reader for each metric in portbench/metrics/<metric>.py, or <base>.py for
-a metric <base>.<suffix>.
+portbench/mixes/<traffic>.json, whose "kind" names the module of its
+driver and comparison in portbench/kinds/<kind>.py (drive.py says what it
+holds), the limits of the comparison in portbench/limits/<workload>.json
+and a reader for each metric in portbench/metrics/<metric>.py, or
+<base>.py for a metric <base>.<suffix>.
 """
 
 from __future__ import annotations
@@ -44,12 +45,16 @@ def manifest(root: str = ROOT) -> dict:
 
 
 def cell_files(bench: dict, workload: str) -> dict:
-    """The cell's entry, configuration, mix, limits and metric entries."""
+    """The cell's entry, configuration, mix, limits and metric entries;
+    its mix's kind is loaded here, so an unknown one stops the run before
+    any set-up."""
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
         raise SystemExit(f"unknown workload {workload!r}; "
                          f"one of {sorted(cells)}")
-    return files_of(bench, cells[workload])
+    files = files_of(bench, cells[workload])
+    kind(files["mix"]["kind"])
+    return files
 
 
 def files_of(bench: dict, w: dict) -> dict:
@@ -74,12 +79,27 @@ def reader(name: str):
     for stem in (name, name.split(".", 1)[0]):
         path = os.path.join(HERE, "metrics", stem + ".py")
         if os.path.exists(path):
-            spec = importlib.util.spec_from_file_location(
-                "portbench_metric_" + stem.replace(".", "_"), path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            return mod.read
+            return _module(path, "portbench_metric_"
+                           + stem.replace(".", "_")).read
     raise FileNotFoundError(f"no reader for metric {name}")
+
+
+def kind(name: str):
+    """The module kinds/<name>.py of a kind of traffic: its `drive(cell)`,
+    `judge(outputs, inputs, device)` and `control(cell, dtype)`."""
+    folder = os.path.join(HERE, "kinds")
+    known = sorted(f[:-3] for f in os.listdir(folder) if f.endswith(".py"))
+    if name not in known:
+        raise SystemExit(f"unknown traffic kind {name!r}; one of {known}")
+    return _module(os.path.join(folder, name + ".py"),
+                   "portbench_kind_" + name)
+
+
+def _module(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def parse(argv: list) -> argparse.Namespace:
@@ -106,16 +126,17 @@ def run_cell(files: dict, seed: int, seconds: float, traced: bool,
     """Drive the cell, judge it and read its metrics -> the result line
     (without its process checks)."""
     import torch
-    from portbench import drive, judge
+    from portbench import drive
     from portbench.spans import Spans
 
     cfg, mix = files["cfg"], files["mix"]
+    traffic = kind(mix["kind"])
     spans = Spans()
     cell = drive.Cell(cfg, mix, seed, seconds, traced, device, tmp, spans)
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    rec = drive.DRIVERS[mix["kind"]](cell)
+    rec = traffic.drive(cell)
     rec["setup_s"] = cell.t_open - started
     rec["spans"] = spans
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -125,7 +146,7 @@ def run_cell(files: dict, seed: int, seconds: float, traced: bool,
     if cuda:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    readings = judge.JUDGES[mix["kind"]](outputs, inputs, device)
+    readings = traffic.judge(outputs, inputs, device)
     log(f"reference and comparison: {time.perf_counter() - t0:.3f} s")
     limits = files["limits"]
     checks = {k: {"value": readings[k], "limit": limits.get(k)}

@@ -78,10 +78,9 @@ def test_match_that_alters_an_answer(monkeypatch, workload):
         def resolve(self, analyzer, ht, handle):
             res, nh = fn(self, analyzer, ht, handle)
             res = [r.copy() for r in res]
-            if len(res[0]):
-                res[0][0, 2] += 3                 # its time offset
-            else:
-                nh[0] += 7                        # its hash count
+            hit = next((i for i, r in enumerate(res) if len(r)), None)
+            if hit is not None:                   # every resolved batch's
+                res[hit][0, 2] += 3               # first match: its offset
             return res, nh
         return resolve
     _broken(monkeypatch, workload, (Matcher, "match_fused_resolve"), wrap)

@@ -72,7 +72,8 @@ def test_every_cell_resolves_its_files():
     for w in b["workloads"]:
         files = run.cell_files(b, w["name"])
         used.add(w["config"])
-        assert files["mix"]["kind"] in ("backlog", "ingest")
+        traffic = run.kind(files["mix"]["kind"])
+        assert callable(traffic.drive) and callable(traffic.judge)
         e2e = {m["name"] for m in files["end_to_end"]}
         assert "setup_s" in e2e and len(e2e) >= 2
         assert files["per_layer"]
@@ -99,7 +100,7 @@ def test_per_layer_metrics_name_their_cells_and_one_mover():
     cells = {w["name"] for w in b["workloads"]}
     layers = {}
     for m in b["per_layer"]:
-        assert m["moves"] in e2e and m["moves"] != "setup_s"
+        assert m["moves"] in e2e
         assert m["workloads"] and set(m["workloads"]) <= cells
         reported = e2e[m["moves"]].get("workloads", sorted(cells))
         assert set(m["workloads"]) <= set(reported)

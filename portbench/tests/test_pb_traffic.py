@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import corpus, drive
+from portbench import corpus, drive, run
 from portbench.tests.conftest import CONDITIONS, SEED, tiny
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -34,9 +34,10 @@ def test_tracks_follow_the_seed():
 def test_queries_follow_the_seed_with_one_set_of_sizes(workload):
     files = tiny(workload)
     tr = drive.make_tracks(_cell(files), 24)
-    q1 = drive.queries(_cell(files), tr, 18)
-    q2 = drive.queries(_cell(files), tr, 18)
-    q3 = drive.queries(_cell(files, SEED + 7), tr, 18)
+    queries = run.kind("backlog").queries
+    q1 = queries(_cell(files), tr, 18)
+    q2 = queries(_cell(files), tr, 18)
+    q3 = queries(_cell(files, SEED + 7), tr, 18)
     assert all(np.array_equal(a, b) for a, b in zip(q1, q2))
     assert not all(np.array_equal(a, b) for a, b in zip(q1, q3))
     # every seed gets the same lengths, in another order
