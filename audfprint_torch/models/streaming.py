@@ -34,6 +34,18 @@ chunk_stats_below and the f64 mean fallback run eagerly.
 Wrong-rate PCM WAVs stream through ResampledWavSource (chunked polyphase
 resampling, bit-identical to resampling the whole file).  Other inputs
 raise StreamUnsupported and callers take the in-memory path.
+
+Tracing (utils/timing), recorded while the tracer or a profiler is on:
+spans stream.read (a chunk's ranged read, staging and upload when the
+device cache does not serve it), stream.stats and stream.peaks (each
+whole pass), stream.fetch (_Fetch.get: the wait for a copy's event),
+stream.bwd_prune (one bwd_prune_sparse call, one per active shift) and
+stream.pair (_pair_on_device with its host slot staging); counters
+stream.chunks (chunk dispatches of both passes), stream.cache_hits (chunks
+served from the device cache after their first read: the floor
+corrections' and the peaks pass's), stream.below (chunk_stats_below
+corrections), stream.fallback (f64 mean fallbacks), stream.fwd_peaks and
+stream.kept_peaks (the backward prune's input and output).
 """
 
 from __future__ import annotations
@@ -53,7 +65,7 @@ from audfprint_torch.utils import audio as audio_io
 from audfprint_torch.ops import cuda_peaks as CP
 from audfprint_torch.ops import pipeline as pipe
 from audfprint_torch.ops import streaming as ST
-from audfprint_torch.utils import graphs
+from audfprint_torch.utils import graphs, timing
 
 
 class StreamUnsupported(Exception):
@@ -202,9 +214,10 @@ class _Fetch:
             self._host = list(tensors)
 
     def get(self) -> list:
-        if self._event is not None:
-            self._event.synchronize()
-        return [t.numpy() for t in self._host]
+        with timing.span("stream.fetch"):
+            if self._event is not None:
+                self._event.synchronize()
+            return [t.numpy() for t in self._host]
 
 
 class _ChunkReader:
@@ -262,10 +275,13 @@ class _ChunkReader:
         nf = self.n_frames(c)
         dev = self._dev.get(c)
         if dev is None:
-            dev = (_to_device(self.chunk(c), self.device),
-                   _to_device(nf, self.device))
+            with timing.span("stream.read"):
+                dev = (_to_device(self.chunk(c), self.device),
+                       _to_device(nf, self.device))
             if self._cache_ok:
                 self._dev[c] = dev
+        else:
+            timing.count("stream.cache_hits", 1)
         return dev[0], dev[1], nf
 
 
@@ -329,6 +345,7 @@ def _stats_pass(rd: _ChunkReader, cfg: PipelineConfig):
     cache = stream_graphs(rd.device).stats
     for c in range(rd.nchunks):
         dev, nf_dev, _nf = rd.chunk_dev(c)
+        timing.count("stream.chunks", 1)
         pend.append((c, _Fetch(*cache.budgeted(
             (dev, nf_dev), (), (cfg,), _chunk_bytes(rd, cfg)))))
         if len(pend) > _LAG:
@@ -353,6 +370,7 @@ def _stats_pass(rd: _ChunkReader, cfg: PipelineConfig):
     gmax_dev = _to_device(gmax, rd.device)
     for c in flagged:
         dev, nf_dev, _nf = rd.chunk_dev(int(c))
+        timing.count("stream.below", 1)
         cnt, bsums, lfs, rm = _Fetch(*ST.chunk_stats_below(
             dev, nf_dev, gmax_dev, cfg)).get()
         if float(rm) > 0:
@@ -376,6 +394,7 @@ def _exact_mean_fallback(rd: _ChunkReader, cfg: PipelineConfig,
     magnitudes, accumulated in f64 on the host (exact at these magnitudes
     and counts).  The stats pass takes it when its integer split cannot be
     exact; the tests hold the integer mean against it."""
+    timing.count("stream.fallback", 1)
     S = len(rd.offs)
     totals = np.zeros(S, np.float64)
     gmax_dev = _to_device(np.asarray(gmax, np.float32), rd.device)
@@ -428,6 +447,7 @@ def _peaks_pass(rd: _ChunkReader, cfg: PipelineConfig, gmax: np.ndarray,
 
     for c in range(rd.nchunks):
         audio, nf_dev, nf = rd.chunk_dev(c)
+        timing.count("stream.chunks", 1)
         xprev, yprev, env = carry
         out = cache.budgeted(
             (audio, nf_dev, gmax_dev, mean_dev, xprev, yprev, env), (gvec,),
@@ -520,19 +540,24 @@ def kept_peaks(filename: str, cfg: PipelineConfig, target_sr: int,
         if rd.nchunks == 0:
             return [], 0, dur
         if stats is None:
-            gmax, mean = _stats_pass(rd, cfg)
+            with timing.span("stream.stats"):
+                gmax, mean = _stats_pass(rd, cfg)
         else:
             gmax = np.asarray([s[0] for s in stats], np.float32)
             mean = np.asarray([s[1] for s in stats], np.float32)
         ap = analyzer_params(cfg)
+        with timing.span("stream.peaks"):
+            peaks = _peaks_pass(rd, cfg, gmax, mean)
         kept: list = []
-        for s, (pk_t, pk_pos, pk_val, lrow) in enumerate(
-                _peaks_pass(rd, cfg, gmax, mean)):
+        for s, (pk_t, pk_pos, pk_val, lrow) in enumerate(peaks):
             if not (rd.T_s[s] > 0 and gmax[s] > 0):
                 kept.append(None)   # an empty or all-zero shift has no peaks
                 continue
-            sel = oa.bwd_prune_sparse(int(rd.T_s[s]), pk_t, pk_pos, pk_val,
-                                      lrow, ap)
+            with timing.span("stream.bwd_prune"):
+                sel = oa.bwd_prune_sparse(int(rd.T_s[s]), pk_t, pk_pos,
+                                          pk_val, lrow, ap)
+            timing.count("stream.fwd_peaks", len(pk_t))
+            timing.count("stream.kept_peaks", int(np.count_nonzero(sel)))
             kept.append((pk_t[sel], pk_pos[sel]))
         return kept, int(rd.T_s.max()), dur
     finally:
@@ -550,7 +575,8 @@ def wavfile2hashes_streaming(filename: str, cfg: PipelineConfig,
     order differs from the in-memory path)."""
     kept, tmax, dur = kept_peaks(filename, cfg, target_sr, chunk_frames,
                                  device, stats)
-    all_h = _pair_on_device(kept, tmax, cfg, device)
+    with timing.span("stream.pair"):
+        all_h = _pair_on_device(kept, tmax, cfg, device)
     if not all_h:
         return np.zeros((0, 2), np.int32), dur
     h = np.concatenate(all_h, axis=0)
