@@ -15,13 +15,15 @@ all shifts batched into one (S, Nc) row block:
           envelope -> per-frame peak slots.  Every recurrence crosses the
           chunk boundary through its exact float32 carry.
 
-The backward prune runs on the host over the sparse forward peaks
-(oracle.analyze.bwd_prune_sparse); pair_kept_slots pairs the kept peaks on
-the device, its frames and anchors padded to powers of two so that one
-shape serves many files.  Results are fetched two chunks behind the
-dispatch: each chunk's results are copied into pinned host memory without
-blocking and the host waits on that chunk's own event, so disk reads and
-host work overlap the card.
+The backward prune runs on the host over the sparse forward peaks, as
+one native call (utils/native.bwd_prune_sparse, the C++ loop in
+native/audfp_host.cpp, bit for bit with oracle.analyze.bwd_prune_sparse,
+which it falls back to without a compiler); pair_kept_slots pairs the
+kept peaks on the device, its frames and anchors padded to powers of two
+so that one shape serves many files.  Results are fetched two chunks
+behind the dispatch: each chunk's results are copied into pinned host
+memory without blocking and the host waits on that chunk's own event, so
+disk reads and host work overlap the card.
 
 On a CUDA device the stats pass, the peaks pass and the pairing replay
 captured CUDA graphs (StreamGraphs, one set per device, so a run over
@@ -39,13 +41,14 @@ Tracing (utils/timing), recorded while the tracer or a profiler is on:
 spans stream.read (a chunk's ranged read, staging and upload when the
 device cache does not serve it), stream.stats and stream.peaks (each
 whole pass), stream.fetch (_Fetch.get: the wait for a copy's event),
-stream.bwd_prune (one bwd_prune_sparse call, one per active shift) and
+stream.bwd_prune (one backward prune, one per active shift) and
 stream.pair (_pair_on_device with its host slot staging); counters
 stream.chunks (chunk dispatches of both passes), stream.cache_hits (chunks
 served from the device cache after their first read: the floor
 corrections' and the peaks pass's), stream.below (chunk_stats_below
 corrections), stream.fallback (f64 mean fallbacks), stream.fwd_peaks and
-stream.kept_peaks (the backward prune's input and output).
+stream.kept_peaks (the backward prune's input and output), and
+stream.bwd_native (the backward prunes the native loop served).
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ from audfprint_torch.utils import audio as audio_io
 from audfprint_torch.ops import cuda_peaks as CP
 from audfprint_torch.ops import pipeline as pipe
 from audfprint_torch.ops import streaming as ST
-from audfprint_torch.utils import graphs, timing
+from audfprint_torch.utils import graphs, native, timing
 
 
 class StreamUnsupported(Exception):
@@ -528,6 +531,26 @@ def analyzer_params(cfg: PipelineConfig) -> P.AnalyzerParams:
         hpf_pole=cfg.hpf_pole)
 
 
+def _bwd_prune(n_frames: int, pk_t: np.ndarray, pk_pos: np.ndarray,
+               pk_val: np.ndarray, last_row: np.ndarray,
+               ap: P.AnalyzerParams) -> np.ndarray:
+    """One shift's backward prune -> keep mask over its forward peaks:
+    the native loop (utils/native.bwd_prune_sparse) on the envelope seed
+    the oracle computes, or the oracle itself where the library is
+    unavailable or does not take the input."""
+    last_row = np.asarray(last_row, np.float32)
+    gvec = P.gaussian_template(ap.f_sd, len(last_row) - 1).astype(np.float32)
+    sthresh = oa.spreadpeaksinvector(last_row, ap.f_sd, gvec=gvec
+                                     ).astype(np.float32)
+    keep = native.bwd_prune_sparse(n_frames, pk_t, pk_pos, pk_val, sthresh,
+                                   gvec, np.float32(ap.a_dec))
+    if keep is None:
+        return oa.bwd_prune_sparse(n_frames, pk_t, pk_pos, pk_val, last_row,
+                                   ap)
+    timing.count("stream.bwd_native", 1)
+    return keep
+
+
 def kept_peaks(filename: str, cfg: PipelineConfig, target_sr: int,
                chunk_frames: int, device: torch.device, stats=None):
     """The streamed analysis up to the pairing: -> (per shift (t, bin)
@@ -554,8 +577,8 @@ def kept_peaks(filename: str, cfg: PipelineConfig, target_sr: int,
                 kept.append(None)   # an empty or all-zero shift has no peaks
                 continue
             with timing.span("stream.bwd_prune"):
-                sel = oa.bwd_prune_sparse(int(rd.T_s[s]), pk_t, pk_pos,
-                                          pk_val, lrow, ap)
+                sel = _bwd_prune(int(rd.T_s[s]), pk_t, pk_pos, pk_val, lrow,
+                                 ap)
             timing.count("stream.fwd_peaks", len(pk_t))
             timing.count("stream.kept_peaks", int(np.count_nonzero(sel)))
             kept.append((pk_t[sel], pk_pos[sel]))

@@ -1,18 +1,25 @@
-// Native host data-loader for audfprint_torch (a copy of
-// native/audfp_host.cpp of the JAX package).
+// Native host code for audfprint_torch: the data-loader (a copy of
+// native/audfp_host.cpp of the JAX package) and the streamed route's
+// backward prune.
 //
 // Role: the host-side analog of the reference's decode layer
 // (audio_read.py, SURVEY §2.3.1).  The reference shells out to ffmpeg per
 // file; at device ingest rates the host becomes the bottleneck, so the bulk
 // path here does RIFF/WAVE parsing, PCM->float32 conversion, and channel
 // mixing in C++ with a std::thread pool, filling a zero-padded batch matrix
-// ready for device transfer.  Exposed to Python via ctypes
-// (audfprint_torch/utils/native.py); NumPy fallbacks exist for every entry
-// point.
+// ready for device transfer.  bwd_prune_sparse is the streamed route's
+// backward prune over the sparse forward peaks, the same float32 decision
+// sequence as oracle.analyze.bwd_prune_sparse.  Exposed to Python via
+// ctypes (audfprint_torch/utils/native.py); every entry point has a
+// NumPy or Python fallback.
 //
 // Build: at first use, by audfprint_torch/utils/native.py
-// (g++ -O3 -shared -fPIC into build/audfprint_torch/).
+// (g++ -O3 -shared -fPIC into build/audfprint_torch/).  No -ffast-math and
+// no FTZ/DAZ: the prune's envelope decays into subnormals over long
+// silences, and NumPy keeps them.
 
+#include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <cstdio>
@@ -188,6 +195,76 @@ void load_wav_batch(const char** paths, int n, float* out,
     std::vector<std::thread> ts;
     for (int t = 0; t < nt; ++t) ts.emplace_back(worker);
     for (auto& t : ts) t.join();
+}
+
+// Backward decaying-threshold prune over a sparse forward-peak stream,
+// bit for bit with oracle.analyze.bwd_prune_sparse.  Peaks i in [0, n):
+// frame pk_t[i] (ascending), bin pk_pos[i] in [0, F), value pk_val[i].
+// sthresh (F) holds the envelope seed and is updated in place; gvec has
+// 2 * gsize + 1 taps.  Walks frames n_frames-1 .. 0: within a frame, peaks
+// by value, then bin, then index, all descending; a peak at least the
+// envelope at its bin is kept, raises the envelope to val * gvec around
+// it and clears the peak at (t + 1, bin) (the last index of a duplicate
+// pair, as the oracle's dict holds); any other peak is dropped.  Every
+// frame then decays the envelope by a_dec.  Peaks outside [0, n_frames)
+// are never visited.  keep (n) is filled with 0/1.  Returns 0, or -1 with
+// keep unfilled when the input is not one the loop takes (pk_t not
+// ascending, a bin outside [0, F), a NaN value, which leaves std::sort
+// no order), for the caller's fallback.
+int bwd_prune_sparse(int64_t n_frames, int64_t n, const int64_t* pk_t,
+                     const int64_t* pk_pos, const float* pk_val, int64_t F,
+                     float* sthresh, const float* gvec, int64_t gsize,
+                     float a_dec, uint8_t* keep) {
+    for (int64_t i = 0; i < n; ++i) {
+        if ((i > 0 && pk_t[i] < pk_t[i - 1]) || pk_pos[i] < 0 ||
+            pk_pos[i] >= F || std::isnan(pk_val[i]))
+            return -1;
+    }
+    std::fill(keep, keep + n, uint8_t(1));
+    if (n_frames <= 0) return 0;
+    // last[b]: the last peak index registered at bin b; it belongs to
+    // frame t + 1 only when pk_t says so
+    std::vector<int64_t> last(F, -1);
+    std::vector<int64_t> order;
+    int64_t e = n;
+    while (e > 0 && pk_t[e - 1] > n_frames) --e;
+    int64_t b = e;
+    while (b > 0 && pk_t[b - 1] == n_frames) --b;
+    for (int64_t i = b; i < e; ++i) last[pk_pos[i]] = i;
+    e = b;
+    for (int64_t t = n_frames - 1; t >= 0; --t) {
+        b = e;
+        while (b > 0 && pk_t[b - 1] == t) --b;
+        if (b < e) {
+            order.clear();
+            for (int64_t i = b; i < e; ++i) order.push_back(i);
+            std::sort(order.begin(), order.end(), [&](int64_t x, int64_t y) {
+                if (pk_val[x] != pk_val[y]) return pk_val[x] > pk_val[y];
+                if (pk_pos[x] != pk_pos[y]) return pk_pos[x] > pk_pos[y];
+                return x > y;
+            });
+            for (int64_t i : order) {
+                const float val = pk_val[i];
+                const int64_t pos = pk_pos[i];
+                if (val >= sthresh[pos]) {
+                    const int64_t lo = std::max<int64_t>(0, pos - gsize);
+                    const int64_t hi = std::min<int64_t>(F, pos + gsize + 1);
+                    for (int64_t k = lo; k < hi; ++k) {
+                        const float v = val * gvec[k - pos + gsize];
+                        if (v > sthresh[k]) sthresh[k] = v;
+                    }
+                    const int64_t j = last[pos];
+                    if (j >= 0 && pk_t[j] == t + 1) keep[j] = 0;
+                } else {
+                    keep[i] = 0;
+                }
+            }
+            for (int64_t i = b; i < e; ++i) last[pk_pos[i]] = i;
+        }
+        for (int64_t k = 0; k < F; ++k) sthresh[k] *= a_dec;
+        e = b;
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -1,10 +1,11 @@
-"""ctypes binding for the native host data-loader (native/audfp_host.cpp).
+"""ctypes binding for the port's native host library (native/audfp_host.cpp).
 
-The port's own copy of audfprint_tpu/utils/native.py.  Builds the shared
-library with g++ on first use into build/audfprint_torch/ under the
-checkout (named by a hash of the source, never next to it); every entry
-point has a NumPy fallback, so the package works without a compiler.  The
-NumPy path is the original's host decode, not a device fallback.  See
+The port's own copy of audfprint_tpu/utils/native.py, plus the streamed
+route's backward prune (bwd_prune_sparse).  Builds the shared library with
+g++ on first use into build/audfprint_torch/ under the checkout (named by
+a hash of the source, never next to it); every entry point has a fallback,
+so the package works without a compiler: the original's NumPy host decode
+for the loader, oracle.analyze.bwd_prune_sparse for the prune.  See
 native/audfp_host.cpp for the role of this layer (the reference's
 audio_read.py decode path, made batch + multithreaded).
 """
@@ -74,6 +75,13 @@ def get_lib():
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
+        lib.bwd_prune_sparse.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_float,
+            ctypes.POINTER(ctypes.c_uint8)]
+        lib.bwd_prune_sparse.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -119,3 +127,37 @@ def load_wav_batch(paths: list, max_samples: int, n_threads: int = 8):
         errs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         ctypes.c_int(n_threads))
     return batch, lens, srs, errs
+
+
+def bwd_prune_sparse(n_frames: int, pk_t: np.ndarray, pk_pos: np.ndarray,
+                     pk_val: np.ndarray, sthresh: np.ndarray,
+                     gvec: np.ndarray, a_dec: np.float32) -> np.ndarray | None:
+    """The backward prune over sparse forward peaks -> bool keep mask,
+    bit for bit with oracle.analyze.bwd_prune_sparse given its envelope
+    seed `sthresh` (float32 (F,), updated in place), its float32 `gvec`
+    and `a_dec`.  None if the lib is unavailable or the input is not one
+    the native loop takes (pk_t not ascending, a bin outside [0, F), a
+    NaN value)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    if sthresh.dtype != np.float32 or not sthresh.flags.c_contiguous:
+        raise ValueError("sthresh must be a contiguous float32 array")
+    if not len(pk_t) == len(pk_pos) == len(pk_val):
+        raise ValueError("pk_t, pk_pos and pk_val differ in length")
+    pk_t = np.ascontiguousarray(pk_t, dtype=np.int64)
+    pk_pos = np.ascontiguousarray(pk_pos, dtype=np.int64)
+    pk_val = np.ascontiguousarray(pk_val, dtype=np.float32)
+    gvec = np.ascontiguousarray(gvec, dtype=np.float32)
+    keep = np.empty(len(pk_t), np.uint8)
+    rc = lib.bwd_prune_sparse(
+        ctypes.c_int64(n_frames), ctypes.c_int64(len(pk_t)),
+        pk_t.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        pk_pos.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        pk_val.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_int64(len(sthresh)),
+        sthresh.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        gvec.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_int64((len(gvec) - 1) // 2), ctypes.c_float(a_dec),
+        keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return keep.view(bool) if rc == 0 else None

@@ -11,10 +11,13 @@ reference (portbench/reference), on the CPU at small sizes.
   (_decode_chunk, _stream_chunk, dispatch_chunk, consume_chunk), leave the
   table reference.table.build gives at maxtimebits 19, bit for bit.
 - The route's spans and counters record while the tracer is on, and not
-  while it is off."""
+  while it is off.
+- The native backward prune and the oracle it falls back to keep the same
+  peaks on the route, and stream.bwd_native counts the native calls."""
 
 import json
 import os
+import shutil
 import tempfile
 import wave
 from types import SimpleNamespace
@@ -29,7 +32,7 @@ from audfprint_torch.models import streaming as STM
 from audfprint_torch.models.analyzer import Analyzer
 from audfprint_torch.models.ingest import DeviceIngest
 from audfprint_torch.ops.config import PipelineConfig
-from audfprint_torch.utils import timing
+from audfprint_torch.utils import native, timing
 from portbench import corpus
 from portbench.reference import analyze as RA
 from portbench.reference import long as RL
@@ -204,3 +207,34 @@ def test_uncached_reader_reads_every_chunk_again(wavs, tracer):
     assert c["stream.chunks"] == 2 * rd.nchunks
     assert (tracer.calls["stream.read"]
             == 2 * rd.nchunks + c.get("stream.below", 0))
+
+
+@pytest.mark.parametrize("shifts", [1, 2])
+def test_native_bwd_prune_on_the_route(wavs, tracer, shifts, monkeypatch):
+    """kept_peaks with the native backward prune and with the library
+    taken away (the oracle's fallback) keep the same peaks and give the
+    same hashes; stream.bwd_native counts one call an active shift with
+    the library and none without."""
+    if native.get_lib() is None and shutil.which("g++") is None:
+        pytest.skip("no g++: the native library cannot be built")
+    paths, _x = wavs
+    cfg = CFG._replace(shifts=shifts)
+    runs = []
+    for with_lib in (True, False):
+        if not with_lib:
+            monkeypatch.setattr(native, "get_lib", lambda: None)
+        tracer.reset()
+        tracer.on = True
+        kept, tmax, _dur = STM.kept_peaks(paths[0], cfg, SR, 256, CPU)
+        rows = np.unique(np.concatenate(
+            STM._pair_on_device(kept, tmax, cfg, CPU)), axis=0)
+        tracer.on = False
+        runs.append((kept, rows, tracer.counters["stream.bwd_native"],
+                     tracer.calls["stream.bwd_prune"]))
+    (k1, h1, n1, c1), (k2, h2, n2, c2) = runs
+    active = sum(k is not None for k in k1)
+    assert active == shifts and len(k1) == len(k2) == shifts
+    for a, b in zip(k1, k2):
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    assert len(h1) > 100 and np.array_equal(h1, h2)
+    assert n1 == c1 == active and n2 == 0 and c2 == active
