@@ -282,6 +282,24 @@ def store_bytes(n: int) -> int:
     return 96 * n
 
 
+def pad_hashes(hs, rows: int, length: int | None = None):
+    """Host (n, 2) (t, hash) arrays -> the (rows, length) int32 times,
+    int32 hashes and bool valid planes that store_batch and the vote
+    take: array b in row b, zeros past it and in the rows past the
+    arrays.  length None = the longest array's, a power of two of at
+    least 256."""
+    if length is None:
+        length = P.next_pow2(max([1] + [len(h) for h in hs]), 256)
+    tt = np.zeros((rows, length), np.int32)
+    hh = np.zeros((rows, length), np.int32)
+    vv = np.zeros((rows, length), bool)
+    for b, h in enumerate(hs):
+        tt[b, : len(h)] = h[:, 0]
+        hh[b, : len(h)] = h[:, 1]
+        vv[b, : len(h)] = True
+    return tt, hh, vv
+
+
 def _as_int32(x: torch.Tensor) -> torch.Tensor:
     """int64 holding uint32 values -> the int32 with the same bits."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)

@@ -12,12 +12,13 @@ device the fused function and the two-stage path's vote are each
 captured as a CUDA graph per shape key and replayed (utils/graphs.
 GraphCache, the counterpart of the JAX package's jitted executables
 _fused_match_graph and match_batch_packed); so are their mesh
-counterparts on a mesh of logical shards of one card in one process
-(graphs.captures_mesh; JAX's jitted shard_map functions), while a mesh
-over several devices or processes runs them eagerly.  The serving
-modes ride the batched match: match_hashes_windowed (broadcast monitoring)
-and match_samples_sweep (playback-speed corrections); illustrate_match and
-sonify_match are host diagnostics on top of match_hashes.
+counterparts, whose caches are made for the mesh, on a mesh of logical
+shards of one card in one process (JAX's jitted shard_map functions),
+while a mesh over several devices or processes runs them eagerly.  The
+serving modes ride the batched match: match_hashes_windowed (broadcast
+monitoring) and match_samples_sweep (playback-speed corrections);
+illustrate_match and sonify_match are host diagnostics on top of
+match_hashes.
 """
 
 from __future__ import annotations
@@ -189,18 +190,12 @@ class Matcher:
         self._dev = None          # (weakref to ht, revision) -> device state
         self._fallback_dev = None
         # the captured graphs, one per shape key: the fused path's and the
-        # two-stage path's vote on one device, and on a mesh that captures
-        # (graphs.captures_mesh: logical shards of this one device), whose
-        # keys carry the mesh
-        counters = pipe.launch_counters()
-        self._graphs = graphs.GraphCache(_fused_match_graph, self.device,
-                                         counters)
-        self._votes = graphs.GraphCache(_two_stage_vote, self.device,
-                                        counters)
-        self._mesh_graphs = graphs.GraphCache(_mesh_fused_match, self.device,
-                                              counters)
-        self._mesh_votes = graphs.GraphCache(_mesh_vote, self.device,
-                                             counters)
+        # two-stage path's vote on one device, and their mesh counterparts,
+        # made with each staged mesh (_device_state), whose keys carry it:
+        # None while no mesh is staged yet
+        self._graphs = graphs.GraphCache(_fused_match_graph, self.device)
+        self._votes = graphs.GraphCache(_two_stage_vote, self.device)
+        self._mesh_graphs = self._mesh_votes = None
 
     # Device-memory budget for one voting call; None = derive from the
     # device on first use.  Set it to split batches on small devices.
@@ -254,6 +249,9 @@ class Matcher:
                 mesh = sharded.make_mesh(
                     ndev, sharded.mesh_devices(self.device))
                 table, counts, tcfg = sharded.upload_sharded(ht, mesh)
+                self._mesh_graphs = graphs.GraphCache(_mesh_fused_match,
+                                                      mesh)
+                self._mesh_votes = graphs.GraphCache(_mesh_vote, mesh)
                 hpi_dev = torch.as_tensor(hpi, device=mesh.devices[0])
                 plane = None
                 if self.use_hpi_plane:
@@ -282,7 +280,8 @@ class Matcher:
     def _clear_graphs(self):
         for cache in (self._graphs, self._votes, self._mesh_graphs,
                       self._mesh_votes):
-            cache.clear()
+            if cache is not None:
+                cache.clear()
 
     # -- core -------------------------------------------------------------
 
@@ -375,10 +374,7 @@ class Matcher:
         # shards of one device and on the mesh's fallback below; a mesh
         # over several devices or processes runs it eagerly.
         core = self.force_core or "sorted"
-        if mesh is None:
-            votes = self._votes
-        else:
-            votes = self._mesh_votes if graphs.captures_mesh(mesh) else None
+        votes = self._votes if mesh is None else self._mesh_votes
         if core not in ("sorted", "hist"):
             raise ValueError(f"unknown voting core {core!r}")
         if mesh is not None and core == "hist" and self._voting_bytes_per_row(
@@ -430,21 +426,14 @@ class Matcher:
         """One sub-batch of query (t, hash) lists -> its rows.  `votes`
         (a GraphCache of _two_stage_vote, or of _mesh_vote on a mesh)
         replays the graph of the vote's key, (rows, Q, qt_cap, [mesh,]
-        tcfg, mcfg, core, plane present), or on a CPU device runs it
-        directly; `need` is its capture's byte estimate for the budget
-        rule (graphs.make_room).  votes=None (a mesh over several devices
-        or processes) runs _mesh_vote eagerly on the host arrays."""
+        tcfg, mcfg, core, plane present), where it captures, and runs the
+        vote directly elsewhere; `need` is its capture's byte estimate
+        for the budget rule (GraphCache.reserve) under the vote's
+        budget."""
         B = len(hash_lists)
-        tt = np.zeros((B, Q), np.int32)
-        hh = np.zeros((B, Q), np.int32)
-        vv = np.zeros((B, Q), bool)
-        for b, h in enumerate(hash_lists):
-            h = np.asarray(h).reshape(-1, 2)
-            tt[b, : len(h)] = h[:, 0]
-            hh[b, : len(h)] = h[:, 1]
-            vv[b, : len(h)] = True
         mcfg = self._mcfg(qt_cap, ncap)
-        inputs = (tt, hh, vv)
+        inputs = DT.pad_hashes(
+            [np.asarray(h).reshape(-1, 2) for h in hash_lists], B, Q)
         state = (table, counts, hpi, hpi_plane if core == "sorted" else None)
         if mesh is None:
             static = (tcfg, mcfg, core)
@@ -454,14 +443,8 @@ class Matcher:
                 # the RLE exchange splits the batch axis over the mesh: pad
                 # B to a multiple of ndev with empty rows, dropped below
                 inputs = _pad_rows(inputs, mesh.size)
-        if votes is None:
-            out = _mesh_vote(*inputs, *state, *static)
-        else:
-            graphs.make_room(
-                votes.device, votes.need([(inputs, state, static, need)]),
-                self._budget_bytes())
-            out = votes(inputs, state, static)
-        out = out[:B].cpu().numpy()
+        votes.reserve([(inputs, state, static, need)], self._budget_bytes())
+        out = votes(inputs, state, static)[:B].cpu().numpy()
         return [out[b, : int(out[b, :, 6].sum()), :6].astype(np.int64)
                 for b in range(B)]
 
@@ -529,7 +512,7 @@ class Matcher:
         On one device each group replays the captured graph of its key
         (rows, bucket length, int16 or float32 input, qcap, the configs,
         the hpi plane), capturing it on the key's first call after the
-        budget rule (graphs.make_room).  On a mesh each group, its rows
+        budget rule (GraphCache.admit).  On a mesh each group, its rows
         padded to a multiple of the mesh size, goes through sharded.
         sharded_fused_match_cached (_mesh_fused_match): every shard
         fingerprints its slice of the batch, then the hit exchange and
@@ -545,10 +528,7 @@ class Matcher:
         budget = self._budget_bytes()
         groups = analyzer.stage_groups(signals)
         state = (table, counts, hpi, hpi_plane)
-        if mesh is None:
-            cache, replays = self._graphs, graphs.captures(self.device)
-        else:
-            cache, replays = self._mesh_graphs, graphs.captures_mesh(mesh)
+        cache = self._graphs if mesh is None else self._mesh_graphs
         idxs_of, calls = [], []
         for idxs, batch, lens in groups:
             # static query-hash cap per bucket: ~density unique hashes/s,
@@ -564,29 +544,9 @@ class Matcher:
             calls.append(((batch, lens), state, static,
                           self._sorted_bytes_per_row(tcfg, qcap, mesh)
                           * len(lens)))
-        if replays:
-            # each key's graph keeps its voting buffers in the shared
-            # pool, which every group of that key reuses: the keys, each
-            # once, must fit the budget; new keys that would not fit
-            # beside what the caches hold clear them first
-            # (graphs.make_room)
-            keys = {cache.key(*c[:3]): c[3] for c in calls}
-            if sum(keys.values()) > budget:
-                return None
-            graphs.make_room(cache.device, cache.need(calls), budget)
-        elif sum(c[3] for c in calls) > budget:
-            # every group is queued before any resolves, so their buffers
-            # can be live together: budget the sum
+        if not cache.admit(calls, budget):
             return None
-        outs = []
-        for idxs, (inputs, state, static, _nbytes) in zip(idxs_of, calls):
-            if mesh is not None and not replays:
-                # several devices or processes: the eager mesh function
-                # places the host arrays itself
-                out = cache.fn(*inputs, *state, *static)
-            else:
-                out = cache(inputs, state, static)
-            outs.append((idxs, out))
+        outs = [(idxs, cache(*call[:3])) for idxs, call in zip(idxs_of, calls)]
         return (len(signals), outs, signals)
 
     def match_fused_resolve(self, analyzer, ht, handle) -> tuple:

@@ -72,10 +72,9 @@ class Analyzer:
         self.stream_chunk_frames = 8192
         # the batched fingerprint's captured graphs, one per shape key
         self._graphs = graphs.GraphCache(pipe.fingerprint_batch_compact_k,
-                                         self.device, pipe.launch_counters())
+                                         self.device)
         # and the batched peaks' (precompute -K)
-        self._peaks = graphs.GraphCache(pipe.peaks_batch, self.device,
-                                        pipe.launch_counters())
+        self._peaks = graphs.GraphCache(pipe.peaks_batch, self.device)
 
     # -- config ---------------------------------------------------------
 
@@ -148,7 +147,7 @@ class Analyzer:
         out: list = [None] * len(signals)
         cfg = self.config
         for idxs, batch, lens in self.stage_groups(signals):
-            bins, valid = self._peaks.budgeted(
+            bins, valid = self._peaks(
                 (batch, lens), (), (cfg,),
                 pipe.fingerprint_bytes(*batch.shape, cfg))
             bins = bins.cpu().numpy()
@@ -241,7 +240,8 @@ class Analyzer:
         waiting; returns a handle for fingerprint_resolve.  Each group
         replays the captured graph of its key (rows, bucket length, int16
         or float32 input, config, k), captured on the key's first call
-        after the budget rule (graphs.make_room)."""
+        after the budget rule (GraphCache.reserve), which never refuses
+        the batch."""
         cfg = self.config
         groups = self.stage_groups(signals)
         calls = []
@@ -249,8 +249,7 @@ class Analyzer:
             k = self._hash_cap_estimate(batch.shape[1] / self.target_sr)
             calls.append(((batch, lens), (), (cfg, k),
                           pipe.fingerprint_bytes(*batch.shape, cfg)))
-        graphs.make_room(self.device, self._graphs.need(calls),
-                         graphs.budget_bytes(self.device))
+        self._graphs.reserve(calls)
         handle = [(idxs, self._graphs(*call[:3]))
                   for (idxs, _b, _l), call in zip(groups, calls)]
         return (len(signals), handle)

@@ -20,11 +20,11 @@ mirror.
                masks every write and returns ok = 0, and the caller
                replays the chunk through the replicated store, so the
                result is the same either way.  On a mesh of logical
-               shards of one device in one process (graphs.captures_mesh)
-               the routed ingest, the store of host hashes and the
-               overflow replay are captured graphs too, the shards' tables
-               and counts their state; a mesh over several devices or
-               processes runs them eagerly.
+               shards of one device in one process the routed ingest,
+               the store of host hashes and the overflow replay are
+               captured graphs too, the shards' tables and counts their
+               state; a mesh over several devices or processes runs them
+               eagerly (each cache decides: GraphCache.replays).
 
 Bit-identical to the sequential host store by construction: the reservoir
 is keyed by (global bucket, position), the batch is cut into contiguous
@@ -207,15 +207,15 @@ class DeviceIngest:
     stored entries.  On a mesh, parallel.sharded's replicated store
     stays the path of precomputed files and of the overflow replay.
 
-    Each pass is a graph cache's call: the fused ingest (`_ingest`), the
-    store of host hashes (`_store`) and, on a mesh, the overflow replay
-    (`_replay`), one captured graph per shape key where the device (one
-    device, or a mesh of logical shards of one device in one process:
-    graphs.captures_mesh) captures, the table and counts (or the lists
-    of their shards) being the state.  A mesh over several devices or
-    processes runs the same functions eagerly.  cap_override forces the
-    mesh's routing cap (None = the cap with 2x headroom); it is part of
-    the routed ingest's key.
+    Each pass is a call of a graph cache made for the device or the
+    mesh: the fused ingest (`_ingest`), the store of host hashes
+    (`_store`) and, on a mesh, the overflow replay (`_replay`), the table
+    and counts (or the lists of their shards) being the state.  The cache
+    replays one captured graph per shape key where its placement captures
+    (one device, or a mesh of logical shards of one device in one
+    process) and runs the same functions eagerly elsewhere.
+    cap_override forces the mesh's routing cap (None = the cap with 2x
+    headroom); it is part of the routed ingest's key.
 
     A chunk of audio is staged in a slot (_Slot) that holds its padded
     batch, lengths and ids and gets its counts back: pinned host memory
@@ -243,7 +243,6 @@ class DeviceIngest:
         self.cfg = DT.config_for(ht)
         self.device = analyzer.device
         fresh = not ht.counts.any()  # an empty table is born on the device
-        counters = pipe.launch_counters()
         if ndev > 1:
             from audfprint_torch.parallel import sharded
             self.mesh = sharded.make_mesh(
@@ -255,41 +254,25 @@ class DeviceIngest:
             else:
                 self.table, self.counts, _ = sharded.upload_sharded(
                     ht, self.mesh)
-            # several devices or processes: the eager functions
-            self._eager = not graphs.captures_mesh(self.mesh)
-            dev = self.mesh.devices[0]
-            self._ingest = graphs.GraphCache(_routed_step, dev, counters)
-            self._store = graphs.GraphCache(sharded.store_step, dev,
-                                            counters)
-            self._replay = graphs.GraphCache(_replay_step, dev, counters)
+            self._ingest = graphs.GraphCache(_routed_step, self.mesh)
+            self._store = graphs.GraphCache(sharded.store_step, self.mesh)
+            self._replay = graphs.GraphCache(_replay_step, self.mesh)
         else:
-            self.mesh, dev = None, self.device
+            self.mesh = None
             if fresh:
                 self.table, self.counts = DT.empty_table(self.cfg,
                                                          self.device)
             else:
                 self.table, self.counts, _ = DT.table_to_device(
                     ht, self.device)
-            self._eager = False
-            self._ingest = graphs.GraphCache(_ingest_step, self.device,
-                                             counters)
-            self._store = graphs.GraphCache(_store_step, self.device,
-                                            counters)
+            self._ingest = graphs.GraphCache(_ingest_step, self.device)
+            self._store = graphs.GraphCache(_store_step, self.device)
         self.replays = 0            # chunks replayed after a cap overflow
         self.seq = 0                # chunks dispatched: the id of their spans
-        self._pinned = dev.type == "cuda"   # pinned slots for the graphs
+        # pinned slots for the graphs
+        self._pinned = self._ingest.device.type == "cuda"
         self._free: list = []       # free slots, least recently used first
         self._pool = None           # the threads that stage a chunk's rows
-
-    def _run(self, cache, inputs, static, nbytes: int):
-        """cache's function on `inputs` and the table: its graph's replay
-        after the budget rule (run directly on a CPU device), or on a
-        mesh over several devices or processes the eager function on the
-        host inputs."""
-        state = (self.table, self.counts)
-        if self._eager:
-            return cache.fn(*inputs, *state, *static)
-        return cache.budgeted(inputs, state, static, nbytes)
 
     # -- chunk path -------------------------------------------------------
 
@@ -392,8 +375,8 @@ class DeviceIngest:
         # the ok flag is a notion of the mesh's routing
         static = ((pcfg, self.cfg) if self.mesh is None else
                   (self.mesh, pcfg, self.cfg, self.cap_override))
-        cnt_ok = self._run(self._ingest, slot.inputs(), static,
-                           _ingest_bytes(*slot.batch.shape, pcfg))
+        cnt_ok = self._ingest(slot.inputs(), (self.table, self.counts),
+                              static, _ingest_bytes(*slot.batch.shape, pcfg))
         slot.fetch(cnt_ok)
         return ("wav", names, durs, cnt_ok, slot)
 
@@ -403,28 +386,19 @@ class DeviceIngest:
         tt, hh, vv, ids = self._pad_hashes(rows)
         static = ((self.cfg,) if self.mesh is None else
                   (self.mesh, self.cfg))
-        self._run(self._store, (tt, hh, vv, ids), static,
-                  DT.store_bytes(hh.size))
+        self._store((tt, hh, vv, ids), (self.table, self.counts), static,
+                    DT.store_bytes(hh.size))
         return ("pre", [n for n, _, _ in rows], [d for _, _, d in rows],
                 [len(h) for _, h, _ in rows], None)
 
     def _pad_hashes(self, rows):
-        B = len(rows)
-        L = P.next_pow2(max(1, max(len(h) for _, h, _ in rows)), 256)
-        Bp = P.next_pow2(B, 8)
         hs = [np.asarray(h).reshape(-1, 2) for _, h, _ in rows]
         with timing.span("ingest.ids"):
-            ids = np.zeros(Bp, np.int32)
+            ids = np.zeros(P.next_pow2(len(rows), 8), np.int32)
             for b, (row, h) in enumerate(zip(rows, hs)):
                 ids[b] = self._assign_id(row[0], len(h))
         with timing.span("ingest.stage"):
-            tt = np.zeros((Bp, L), np.int32)
-            hh = np.zeros((Bp, L), np.int32)
-            vv = np.zeros((Bp, L), bool)
-            for b, h in enumerate(hs):
-                tt[b, : len(h)] = h[:, 0]
-                hh[b, : len(h)] = h[:, 1]
-                vv[b, : len(h)] = True
+            tt, hh, vv = DT.pad_hashes(hs, len(ids))
         return tt, hh, vv, ids
 
     def consume_chunk(self, handle) -> list:
@@ -461,9 +435,9 @@ class DeviceIngest:
         waits for the replay, so the slot has been read when it returns."""
         self.replays += 1
         pcfg = self.analyzer.config
-        cnt = self._run(self._replay, slot.inputs(),
-                        (self.mesh, pcfg, self.cfg),
-                        _ingest_bytes(*slot.batch.shape, pcfg))
+        cnt = self._replay(slot.inputs(), (self.table, self.counts),
+                           (self.mesh, pcfg, self.cfg),
+                           _ingest_bytes(*slot.batch.shape, pcfg))
         with timing.span("ingest.counts_fetch"):
             return cnt.cpu().numpy()
 

@@ -295,11 +295,9 @@ class StreamGraphs:
     the pairing (pair_kept_slots)."""
 
     def __init__(self, device):
-        counters = pipe.launch_counters()
-        self.stats = graphs.GraphCache(ST.chunk_stats, device, counters)
-        self.peaks = graphs.GraphCache(ST.chunk_fwd_peaks_step, device,
-                                       counters)
-        self.pair = graphs.GraphCache(ST.pair_kept_slots, device, counters)
+        self.stats = graphs.GraphCache(ST.chunk_stats, device)
+        self.peaks = graphs.GraphCache(ST.chunk_fwd_peaks_step, device)
+        self.pair = graphs.GraphCache(ST.pair_kept_slots, device)
 
     def keys(self) -> list:
         return self.stats.keys() + self.peaks.keys() + self.pair.keys()
@@ -349,7 +347,7 @@ def _stats_pass(rd: _ChunkReader, cfg: PipelineConfig):
     for c in range(rd.nchunks):
         dev, nf_dev, _nf = rd.chunk_dev(c)
         timing.count("stream.chunks", 1)
-        pend.append((c, _Fetch(*cache.budgeted(
+        pend.append((c, _Fetch(*cache(
             (dev, nf_dev), (), (cfg,), _chunk_bytes(rd, cfg)))))
         if len(pend) > _LAG:
             drain()
@@ -452,7 +450,7 @@ def _peaks_pass(rd: _ChunkReader, cfg: PipelineConfig, gmax: np.ndarray,
         audio, nf_dev, nf = rd.chunk_dev(c)
         timing.count("stream.chunks", 1)
         xprev, yprev, env = carry
-        out = cache.budgeted(
+        out = cache(
             (audio, nf_dev, gmax_dev, mean_dev, xprev, yprev, env), (gvec,),
             (cfg, c == 0), _chunk_bytes(rd, cfg))
         carry = (out[5], out[6], out[4])
@@ -506,7 +504,7 @@ def _pair_on_device(kept: list, Tmax: int, cfg: PipelineConfig,
         anchors[s, : len(t)] = t * K + slot
         n_a[s] = len(t)
     nbytes = 16 * S * Tp * K * cfg.maxpairsperpeak
-    (g,) = _Fetch(stream_graphs(device).pair.budgeted(
+    (g,) = _Fetch(stream_graphs(device).pair(
         (slots, anchors), (), (cfg,), nbytes)).get()
     out = []
     for s in range(S):

@@ -34,9 +34,9 @@ which the global capture mode refuses).
 With one process and every shard on one device, the collectives are
 slices, same-device `.to()` and torch.cat, and nothing in them reads
 back to the host: a mesh of logical shards of one card can be captured
-as a whole (utils/graphs.captures_mesh).  Across devices or processes
-it runs eagerly: a capture lives on one device's streams, and gloo
-stages its collectives through the host.
+as a whole (one_device; utils/graphs.GraphCache.replays).  Across devices or
+processes it runs eagerly: a capture lives on one device's streams, and
+gloo stages its collectives through the host.
 """
 
 from __future__ import annotations
@@ -94,6 +94,17 @@ class Mesh:
     def __repr__(self):
         return (f"Mesh({self.nproc} x {[str(d) for d in self.devices]}, "
                 f"rank {self.rank})")
+
+    @property
+    def one_device(self):
+        """The device every shard sits on, where this is one process whose
+        local shards all share one device, else None.  Only such a mesh
+        can be captured as a whole: a capture records one device's
+        streams, and a mesh that spans processes stages its collectives
+        through torch.distributed (gloo through the host)."""
+        if self.nproc == 1 and len(set(self.devices)) == 1:
+            return self.devices[0]
+        return None
 
     # -- placement ----------------------------------------------------------
 

@@ -17,9 +17,9 @@ hits all live on the shard that owns its bucket.
 
 Analysis is data parallel over the batch axis (dp_fingerprint_fn).
 
-Graphs: on a mesh of logical shards of one device in one process
-(graphs.captures_mesh) the Matcher, DeviceIngest and ShardedStore replay
-these functions as CUDA graphs per shape key (utils/graphs.GraphCache),
+Graphs: on a mesh of logical shards of one device in one process the
+Matcher, DeviceIngest and ShardedStore replay these functions as CUDA
+graphs per shape key (utils/graphs.GraphCache, made for the mesh),
 the counterpart of jax.jit over shard_map: the shards' tables and counts
 are the graphs' state, written in place (donate_argnums), and the inputs
 arrive as the cache's static device buffers, so split_batch and
@@ -367,17 +367,16 @@ class ShardedStore:
     store_vectorized of the same files), and `finalize()` downloads the
     result into the host table, which stays the persistence mirror.
 
-    On a mesh that captures (graphs.captures_mesh) each chunk replays the
-    store's CUDA graph of its (rows, length) key, the shards being its
-    state; elsewhere the store runs eagerly."""
+    Each chunk is a call of the store's graph cache, made for the mesh:
+    where the mesh captures it replays the CUDA graph of its (rows,
+    length) key, the shards being its state; elsewhere the store runs
+    eagerly."""
 
     def __init__(self, ht, mesh: Mesh):
         self.ht = ht
         self.mesh = mesh
         self.table, self.counts, self.cfg = upload_sharded(ht, mesh)
-        self._graphs = (graphs.GraphCache(store_step, mesh.devices[0],
-                                          pipe.launch_counters())
-                        if graphs.captures_mesh(mesh) else None)
+        self._graphs = graphs.GraphCache(store_step, mesh)
 
     def store_chunk(self, names_hashes: list) -> None:
         """Store [(name, (n, 2) int host hashes)] in order; ids come from
@@ -385,29 +384,16 @@ class ShardedStore:
         host)."""
         if not names_hashes:
             return
-        B = len(names_hashes)
-        L = P.next_pow2(max(1, max(len(h) for _, h in names_hashes)), 256)
-        Bp = P.next_pow2(B, 8)
-        tt = np.zeros((Bp, L), np.int32)
-        hh = np.zeros((Bp, L), np.int32)
-        vv = np.zeros((Bp, L), bool)
-        ids = np.zeros(Bp, np.int32)
-        for b, (name, h) in enumerate(names_hashes):
-            h = np.asarray(h).reshape(-1, 2)
+        hs = [np.asarray(h).reshape(-1, 2) for _, h in names_hashes]
+        ids = np.zeros(P.next_pow2(len(hs), 8), np.int32)
+        for b, ((name, _), h) in enumerate(zip(names_hashes, hs)):
             id_ = self.ht.name_to_id(name, add_if_missing=True)
             self.ht._check_id_capacity(id_)
             self.ht.hashesperid[id_] += len(h)
             ids[b] = id_
-            tt[b, : len(h)] = h[:, 0]
-            hh[b, : len(h)] = h[:, 1]
-            vv[b, : len(h)] = True
-        if self._graphs is None:
-            store_step(tt, hh, vv, ids, self.table, self.counts, self.mesh,
-                       self.cfg)
-        else:
-            self._graphs.budgeted((tt, hh, vv, ids), (self.table, self.counts),
-                                  (self.mesh, self.cfg),
-                                  DT.store_bytes(hh.size))
+        tt, hh, vv = DT.pad_hashes(hs, len(ids))
+        self._graphs((tt, hh, vv, ids), (self.table, self.counts),
+                     (self.mesh, self.cfg), DT.store_bytes(hh.size))
 
     def finalize(self) -> None:
         """Download the device state into the host table."""

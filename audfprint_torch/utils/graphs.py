@@ -48,20 +48,28 @@ leaves for later lies outside the pool (the static inputs, filled
 before the replay; the clones of the outputs, taken right after it), so
 a graph may reuse any other graph's intermediates in any replay order.
 held_bytes(device) counts the pool's growth over its captures and the
-static inputs of every cache on the device.  The budget rule
-(make_room): a new key whose capture would not fit beside what the
-caches hold clears every cache on the device, pool included, before it
-is captured; `counts["budget_clears"]` counts those clears.
+static inputs of every cache on the device.  The budget rule: a new key
+whose capture would not fit beside what the caches hold clears every
+cache on the device, pool included, before it is captured;
+`counts["budget_clears"]` counts those clears.  A cache applies it
+itself: to one call's new key (the call's `nbytes`, against the
+device's budget_bytes), or to a batch of calls queued before any
+resolves (admit, which may refuse the batch, and reserve, which never
+does), against the caller's budget.
 
-Meshes: a mesh of logical shards on one device in one process
-(captures_mesh) is captured like one device, its shards' tables and
-counts (lists of tensors) being the state: the counterpart of the JAX
-package's jitted shard_map functions.  A mesh over several devices or
-processes runs eagerly.
+Placement: a cache is made for a device or a parallel/mesh.Mesh, and
+decides from it whether its calls replay (`replays`).  A CUDA device
+replays.  So does a mesh of logical shards on one device in one process,
+captured like one device, its shards' tables and counts (lists of
+tensors) being the state: the counterpart of the JAX package's jitted
+shard_map functions.  A CPU device, which a caller asks for by name,
+runs the function directly on its inputs placed there; a mesh over
+several devices or processes runs it directly on the inputs as given,
+which its function places itself.  Such a cache holds nothing, so its
+budget rule clears nothing; admit budgets the sum of its batch's calls,
+whose buffers can be live together.
 
-No fallback: on a CUDA device a failed capture or replay raises.  A CPU
-device, which a caller asks for by name, captures nothing and runs the
-function directly.
+No fallback: on a CUDA device a failed capture or replay raises.
 
 Tracing (utils/timing): a replay is the span "graph.pin" (every host
 array made contiguous and pinned; the counter "graph.h2d_bytes" adds the
@@ -83,6 +91,7 @@ import numpy as np
 import torch
 
 from audfprint_torch.ops import _build
+from audfprint_torch.ops import pipeline as pipe
 from audfprint_torch.utils import timing
 
 # process-wide: keys captured, graph replays, and clears made by the
@@ -95,17 +104,6 @@ def captures(device: torch.device) -> bool:
     """Whether calls on `device` replay captured graphs: every CUDA device
     does; a CPU device runs the function directly."""
     return device.type == "cuda"
-
-
-def captures_mesh(mesh) -> bool:
-    """Whether calls on `mesh` (parallel/mesh.Mesh) replay captured graphs:
-    one process whose local shards all sit on one device that captures.
-    A capture records one device's streams, and a mesh that spans
-    processes stages its collectives through torch.distributed (gloo
-    through the host), so a mesh over several devices or processes runs
-    its functions eagerly."""
-    return (mesh.nproc == 1 and len(set(mesh.devices)) == 1
-            and captures(mesh.devices[0]))
 
 
 def budget_bytes(device: torch.device) -> int:
@@ -155,22 +153,6 @@ def clear(device: torch.device) -> None:
     them."""
     for cache in list(_shared(device).caches):
         cache.clear()
-
-
-def make_room(device: torch.device, need: int, budget: int) -> bool:
-    """The budget rule, applied before a call captures new keys whose
-    captures need about `need` bytes: when they would not fit in `budget`
-    beside what the caches on the device hold, every cache there is
-    cleared first (counted in counts["budget_clears"]).  Returns whether
-    it cleared."""
-    if need <= 0 or not captures(device):
-        return False
-    held = held_bytes(device)
-    if held == 0 or held + need <= budget:
-        return False
-    clear(device)
-    counts["budget_clears"] += 1
-    return True
 
 
 def _tensors(out) -> tuple:
@@ -255,16 +237,30 @@ class GraphCache:
     inputs: host numpy arrays or device tensors, copied into the graph's
     static buffers on each call; state: device tensors (or None) the
     graphs read, and may write, in place; static: hashable arguments
-    that shape the graph.  counters: the kernel wrappers' launch-count
-    dicts; a replay adds to them the launches its capture queued."""
+    that shape the graph.  place: the torch device or the
+    parallel/mesh.Mesh the calls run on (`replays` says whether they
+    replay graphs there).  A replay adds the launches its capture queued
+    to the kernel wrappers' launch counts (ops/pipeline.launch_counters)."""
 
-    def __init__(self, fn, device, counters: tuple = ()):
+    def __init__(self, fn, place):
         self.fn = fn
-        self.device = torch.device(device)
-        self.counters = counters
+        # a mesh has `devices`; anything else names a torch device
+        self.mesh = place if hasattr(place, "devices") else None
+        self.device = (place.devices[0] if self.mesh is not None
+                       else torch.device(place))
+        self.counters = pipe.launch_counters()
         self._entries: dict = {}
         self._state: tuple = ()
         _shared(self.device).caches.add(self)
+
+    @property
+    def replays(self) -> bool:
+        """Whether calls replay captured graphs: on a device that captures,
+        or on a mesh that can be captured as a whole (Mesh.one_device)
+        on such a device.  A mesh over several devices or processes runs
+        its function directly."""
+        return captures(self.device) and (
+            self.mesh is None or self.mesh.one_device is not None)
 
     @staticmethod
     def key(inputs, state, static) -> tuple:
@@ -277,23 +273,53 @@ class GraphCache:
         """The captured keys, in capture order."""
         return list(self._entries)
 
-    def holds(self, inputs, state, static) -> bool:
-        """Whether a call with these arguments replays a captured graph."""
-        return self._same_state(state) and \
-            self.key(inputs, state, static) in self._entries
-
-    def need(self, calls) -> int:
+    def _need(self, calls) -> int:
         """Bytes the captures of a batch of calls need: the estimate of
         each (inputs, state, static, nbytes) call whose key is neither
         captured nor met earlier in `calls`."""
         seen, total = set(), 0
         for inputs, state, static, nbytes in calls:
             key = self.key(inputs, state, static)
-            if key in seen or self.holds(inputs, state, static):
+            if key in seen or (self._same_state(state)
+                               and key in self._entries):
                 continue
             seen.add(key)
             total += nbytes
         return total
+
+    def reserve(self, calls, budget: int | None = None) -> None:
+        """The budget rule before a batch of (inputs, state, static,
+        nbytes) calls: where this cache replays and the captures of their
+        new keys would not fit in `budget` (None: budget_bytes of the
+        device) beside what the caches on the device hold, every cache
+        there is cleared first (counted in counts["budget_clears"])."""
+        if not self.replays:
+            return
+        need = self._need(calls)
+        if need <= 0:
+            return
+        if budget is None:
+            budget = budget_bytes(self.device)
+        held = held_bytes(self.device)
+        if held == 0 or held + need <= budget:
+            return
+        clear(self.device)
+        counts["budget_clears"] += 1
+
+    def admit(self, calls, budget: int) -> bool:
+        """Whether a batch of (inputs, state, static, nbytes) calls, queued
+        before any resolves, fits `budget`; when it does, after the budget
+        rule (reserve).  Where this cache replays, each key's graph keeps
+        its buffers in the shared pool, which every call of that key
+        reuses: the distinct keys' estimates must fit.  Where it runs
+        directly, every call's buffers can be live together: their sum
+        must fit."""
+        if not self.replays:
+            return sum(c[3] for c in calls) <= budget
+        if sum({self.key(*c[:3]): c[3] for c in calls}.values()) > budget:
+            return False
+        self.reserve(calls, budget)
+        return True
 
     @property
     def input_bytes(self) -> int:
@@ -310,15 +336,6 @@ class GraphCache:
         return {k: e.pool_bytes + e.input_bytes
                 for k, e in self._entries.items()}
 
-    def budgeted(self, inputs, state, static, nbytes: int):
-        """self(inputs, state, static), after the budget rule
-        (make_room) when its key is new and its capture needs about
-        `nbytes`."""
-        need = self.need([(inputs, state, static, nbytes)])
-        if need:
-            make_room(self.device, need, budget_bytes(self.device))
-        return self(inputs, state, static)
-
     def capture_seconds(self) -> dict:
         return {k: e.capture_s for k, e in self._entries.items()}
 
@@ -334,11 +351,19 @@ class GraphCache:
         return len(state) == len(self._state) and all(
             a is b for a, b in zip(state, self._state))
 
-    def __call__(self, inputs, state, static):
+    def __call__(self, inputs, state, static, nbytes: int = 0):
+        """fn on these arguments: where the cache replays, the graph of
+        their key, captured on the key's first call after the budget rule
+        (reserve) with `nbytes`, its capture's estimate; elsewhere fn
+        itself, on a device with the inputs placed there, on a mesh with
+        the inputs as given."""
         dev = self.device
-        if not captures(dev):
-            return self.fn(*(torch.as_tensor(a, device=dev) for a in inputs),
-                           *state, *static)
+        if not self.replays:
+            if self.mesh is None:
+                inputs = [torch.as_tensor(a, device=dev) for a in inputs]
+            return self.fn(*inputs, *state, *static)
+        if nbytes:
+            self.reserve([(inputs, state, static, nbytes)])
         if not self._same_state(state):
             self.clear()
             self._state = tuple(state)

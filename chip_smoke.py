@@ -2472,7 +2472,6 @@ def mesh_graphs(torch, ctx, dev, ndev: int, chunk: int,
     from audfprint_torch.models.analyzer import Analyzer
     from audfprint_torch.models.ingest import DeviceIngest
     from audfprint_torch.parallel import sharded
-    from audfprint_torch.utils import graphs
 
     smi = nvidia_smi_line()
     ht, an, tracks = ctx["ht"], ctx["an"], ctx["tracks"]
@@ -2511,8 +2510,7 @@ def mesh_graphs(torch, ctx, dev, ndev: int, chunk: int,
         m.force_core = "hist" if core == "hist" else None
         m.use_hpi_plane = plane or None
         m.match_hashes_batch(ht, qh)                       # capture
-        require(graphs.captures_mesh(m._device_state(ht)[5])
-                and m._mesh_votes.keys(),
+        require(m._mesh_votes.replays and m._mesh_votes.keys(),
                 f"the {name} mesh vote captured no graph")
 
         def batch(mode, m=m, name=name):
@@ -3054,11 +3052,11 @@ def streaming_graphs(torch, an, long_wav: str, long2: str, h8192, dev,
     nbytes = STM._chunk_bytes(rd, cfg)
 
     def peaks():
-        return sg.peaks.budgeted((audio, nf, ones, zs, z, z, z),
-                                 (gvec,), (cfg, False), nbytes)
+        return sg.peaks((audio, nf, ones, zs, z, z, z), (gvec,),
+                        (cfg, False), nbytes)
 
     def stats():
-        return sg.stats.budgeted((audio, nf), (), (cfg,), nbytes)
+        return sg.stats((audio, nf), (), (cfg,), nbytes)
 
     def eager(fn):
         def run():
@@ -3114,8 +3112,9 @@ def _numpy_staged_store(an, chunks: list):
             batch[row, : len(x)] = x
             lens[row] = len(x)
             ids[row] = ing._assign_id(name, None)
-        cnt = ing._run(ing._ingest, (batch, lens, ids), (pcfg, ing.cfg),
-                       ING._ingest_bytes(*batch.shape, pcfg))
+        cnt = ing._ingest((batch, lens, ids), (ing.table, ing.counts),
+                          (pcfg, ing.cfg),
+                          ING._ingest_bytes(*batch.shape, pcfg))
         cnt = cnt.cpu().numpy()[: len(sigs)]
         for row in range(len(sigs)):
             ht.hashesperid[ids[row]] += int(cnt[row])

@@ -33,6 +33,7 @@ from audfprint_torch.ops import landmarks as L  # noqa: E402
 from audfprint_torch.ops import peaks as PK  # noqa: E402
 from audfprint_torch.ops import pipeline as pipe  # noqa: E402
 from audfprint_torch.ops import spectro as SP  # noqa: E402
+from audfprint_torch.parallel import sharded  # noqa: E402
 from audfprint_torch.utils.audio import audio_write_wav  # noqa: E402
 from audfprint_torch.utils.timing import Stages  # noqa: E402
 from audfprint_torch.utils import graphs  # noqa: E402
@@ -313,7 +314,7 @@ def test_replay_counts_its_launches(recorded):
         L.launches["pair_scan"] += 1
         return a.sum(dim=1) * k + s
 
-    cache = graphs.GraphCache(fn, "cpu", COUNTERS)
+    cache = graphs.GraphCache(fn, "cpu")
     s = torch.tensor(3.0)
     before = L.launches["pair_scan"]
     outs = [cache((np.full((2, 4), v, np.float32), np.zeros(2, np.int32)),
@@ -325,6 +326,47 @@ def test_replay_counts_its_launches(recorded):
     ((shapes, nones, static),) = cache.keys()
     assert shapes == (((2, 4), "<f4"), ((2,), "<i4"))
     assert nones == (False,) and static == (2.0,)
+
+
+@pytest.mark.parametrize("place", ["cpu device", "mesh over two devices"])
+def test_eager_placement_runs_fn_past_the_budget(monkeypatch, place):
+    """A cache whose placement captures nothing, a CPU device or a mesh
+    over two devices ("cpu" and "cpu:0", every device capturing as on
+    the card), runs fn directly on a call whose nbytes is far past the
+    budget beside what the device holds: no capture, no replay, no
+    budget clear, and the plain function's rows; the device's inputs
+    arrive as tensors there, the mesh's as given."""
+    if place == "cpu device":
+        where, given = torch.device("cpu"), torch.Tensor
+    else:
+        monkeypatch.setattr(graphs, "captures", lambda device: True)
+        where = sharded.make_mesh(
+            4, [torch.device("cpu"), torch.device("cpu", 0)])
+        given = np.ndarray
+
+    def refuse(*a, **kw):
+        raise AssertionError("a placement that captures nothing captured")
+
+    monkeypatch.setattr(graphs, "_warm", refuse)
+    monkeypatch.setattr(graphs, "_record", refuse)
+    monkeypatch.setattr(graphs, "budget_bytes", lambda device: 1)
+    monkeypatch.setattr(graphs, "held_bytes", lambda device: 1 << 40)
+    seen = []
+
+    def fn(t, h, table, k):
+        seen.append((type(t), type(h)))
+        return torch.as_tensor(t) * k + torch.as_tensor(h) + table
+
+    cache = graphs.GraphCache(fn, where)
+    t = np.arange(8, dtype=np.int32).reshape(2, 4)
+    h = np.full((2, 4), 5, np.int32)
+    table = torch.ones((2, 4), dtype=torch.int32)
+    before = dict(graphs.counts)
+    out = cache((t, h), (table,), (3,), nbytes=1 << 40)
+    assert not cache.replays and cache.keys() == []
+    assert graphs.counts == before
+    assert seen == [(given, given)]
+    assert torch.equal(out, torch.as_tensor(t) * 3 + torch.as_tensor(h) + 1)
 
 
 def test_cpu_device_captures_nothing(db):
@@ -353,7 +395,7 @@ def test_failed_capture_raises(db, monkeypatch):
 
 def test_budget_counts_the_cache(db, recorded, monkeypatch):
     """What the caches on the device hold counts against the fused path's
-    budget (graphs.make_room): a captured key replays with nothing to
+    budget (GraphCache.admit): a captured key replays with nothing to
     fit; a new key that would not fit beside what they hold clears them
     all (counted) and is captured; keys past the budget on their own
     take the two-stage path (None)."""

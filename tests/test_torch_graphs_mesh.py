@@ -153,9 +153,10 @@ def test_mesh_fused_match_replays_three_ways(db, jmesh, recorded,
     an, ht, qs = db["an"], db["ht"], db["qs"]
     m = _mesh_matcher(plane)
     rooms = []
-    make_room = graphs.make_room
-    monkeypatch.setattr(graphs, "make_room", lambda dev, need, budget: (
-        rooms.append(need), make_room(dev, need, budget))[1])
+    reserve = graphs.GraphCache.reserve
+    monkeypatch.setattr(
+        graphs.GraphCache, "reserve", lambda self, calls, budget=None: (
+            rooms.append(self._need(calls)), reserve(self, calls, budget))[1])
     before = dict(graphs.counts)
     first = m.match_samples_fused(an, ht, qs)
     assert _delta(before) == {"captures": 1, "replays": 0,
@@ -481,7 +482,7 @@ def test_sharded_store_chunk_replays(db, recorded, idbits):
 
 def test_mesh_over_two_devices_captures_nothing(db, recorded, monkeypatch):
     """Shards on two devices ("cpu" and "cpu:0" are two devices to torch):
-    graphs.captures_mesh says no, and the fused and two-stage matches,
+    their caches do not replay, and the fused and two-stage matches,
     the routed ingest and ShardedStore run eagerly with one device's rows
     and the host store's table, capturing nothing."""
     two = [CPU, torch.device("cpu", 0)]
@@ -506,7 +507,7 @@ def test_mesh_over_two_devices_captures_nothing(db, recorded, monkeypatch):
     st.store_chunk([("w0.wav", db["hashes"][0])])
     st.finalize()
     _assert_same(st_ht, _host(db, ["w0.wav"]))
-    assert not graphs.captures_mesh(st.mesh)
+    assert not st._graphs.replays
     assert _delta(before)["captures"] == 0
 
 
@@ -561,7 +562,7 @@ ing.consume_chunk(ing.dispatch_chunk(
 st = sharded.ShardedStore(HashTable(hashbits=12, depth=8, maxtime=4096),
                           sharded.make_mesh(4, ["cpu"]))
 st.store_chunk([("c0", hashes[0])])
-assert not graphs.captures_mesh(st.mesh)
+assert not st._graphs.replays
 print("CAPTURES", graphs.counts["captures"])
 """
 
