@@ -354,21 +354,23 @@ def _decode_chunk(analyzer: Analyzer, args, report, chunk: list) -> list:
 
 
 def _stream_chunk(analyzer: Analyzer, report, ordered: list) -> list:
-    """The "stream" entries of a decoded chunk analysed chunk-wise, with
-    O(chunk) memory: payload = (hashes, duration), or None when reading
-    failed (reported).  The streamed route runs on the device, so it runs
-    on the thread that dispatches: a CUDA graph captured there in the
-    default global mode must see no CUDA call from another thread."""
+    """The "stream" entries of a decoded chunk analysed chunk-wise as one
+    group (Analyzer.wavfiles2hashes_streaming), with O(chunk) memory:
+    payload = (hashes, duration), or None when reading failed (reported).
+    The streamed route runs on the device, so it runs on the thread that
+    dispatches: a CUDA graph captured there in the default global mode
+    must see no CUDA call from another thread."""
+    names = [n for n, k, _d in ordered if k == "stream"]
+    got = iter(analyzer.wavfiles2hashes_streaming(names) if names else ())
     out = []
     for n, k, d in ordered:
         if k == "stream":
-            try:
-                h = analyzer.wavfile2hashes_streaming(n)
-                d = (h, analyzer.soundfiledur)
-            except (OSError, ValueError, audio_io.DecodeError) as e:
+            d = next(got)
+            if isinstance(d, Exception):
                 if analyzer.fail_on_error:
-                    raise
-                report(f"Error reading {n}: {e}")
+                    raise d
+                report(f"Error reading {n}: {d}")
+                d = None
         out.append((n, k, d))
     return out
 

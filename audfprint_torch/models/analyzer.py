@@ -194,6 +194,15 @@ class Analyzer:
         self.soundfiledur = dur
         return h
 
+    def wavfiles2hashes_streaming(self, filenames: list,
+                                  chunk_frames: int | None = None) -> list:
+        """Chunked analysis of many WAVs, their passes run as groups
+        (models/streaming.wavfiles2hashes_streaming): per file (hashes,
+        duration), or the exception reading it raised."""
+        return STM.wavfiles2hashes_streaming(
+            filenames, self.config, self.target_sr, self.device,
+            chunk_frames or self.stream_chunk_frames)
+
     # -- batched API --------------------------------------------------------
 
     def stage_groups(self, signals: list):
@@ -279,14 +288,19 @@ class Analyzer:
     def wavfiles2hashes(self, filenames: list) -> list:
         """Batched fingerprinting of many files -> list of (N, 2) arrays
         (None for failed decodes when fail_on_error is False).  Files past
-        stream_above_sec analyse chunk-wise instead of joining the
-        in-memory batch."""
+        stream_above_sec analyse chunk-wise, as one group, instead of
+        joining the in-memory batch."""
+        long = [i for i, f in enumerate(filenames) if self._should_stream(f)]
+        streamed = dict(zip(long, self.wavfiles2hashes_streaming(
+            [filenames[i] for i in long])))
         signals, durs, oks = [], [], []
-        streamed: dict[int, np.ndarray] = {}
         for i, f in enumerate(filenames):
             try:
-                if self._should_stream(f):
-                    streamed[i] = self.wavfile2hashes_streaming(f)
+                if i in streamed:
+                    got = streamed[i]
+                    if isinstance(got, Exception):
+                        raise got
+                    self.soundfiledur = got[1]
                     signals.append(np.zeros(0, np.float32))
                 else:
                     signals.append(self.read_audio(f))
@@ -299,8 +313,9 @@ class Analyzer:
                 durs.append(0.0)
                 oks.append(False)
         hashes = self.samples_batch2hashes(signals)
-        for i, h in streamed.items():
-            hashes[i] = h
+        for i, got in streamed.items():
+            if oks[i]:
+                hashes[i] = got[0]
         self.durations = durs
         return [h if ok else None for h, ok in zip(hashes, oks)]
 

@@ -3,7 +3,8 @@
 A file is analysed in fixed-size frame-aligned chunks with every piece of
 cross-chunk state carried exactly, so host and device memory stay
 O(chunk) while the results match a one-pass analysis.  Two device passes
-per chunk, all shifts batched as rows (models/streaming.py drives them):
+per chunk, every shift of every file in a group batched as rows, each row
+computed on its own (models/streaming.py drives them):
 
   stats pass (chunk_stats)  per shift row: the max |STFT| over valid
           frames (associative, so the chunked max is the one-pass max),
@@ -108,15 +109,15 @@ def _split3(x: torch.Tensor):
 def _sum6(s: torch.Tensor, take: torch.Tensor):
     """Signed exact sums: s (S, T, F) f32, take (S, T, F) bool ->
     (sums (S, 6) int64 level totals, positive part's three levels then
-    the negative part's, and the max split residual, a 0-d f32).  Level
-    values stay < 2^22, so int64 totals cannot overflow for any T."""
+    the negative part's, and each row's max split residual, (S,) f32).
+    Level values stay < 2^22, so int64 totals cannot overflow for any T."""
     pos = torch.where(take, torch.clamp(s, min=0.0), 0.0)
     neg = torch.where(take, torch.clamp(-s, min=0.0), 0.0)
     p0, p1, p2, rp = _split3(pos)
     n0, n1, n2, rn = _split3(neg)
     sums = torch.stack([lvl.to(torch.int64).sum(dim=(1, 2))
                         for lvl in (p0, p1, p2, n0, n1, n2)], dim=-1)
-    return sums, torch.maximum(rp.amax(), rn.amax())
+    return sums, torch.maximum(rp.amax(dim=(1, 2)), rn.amax(dim=(1, 2)))
 
 
 def levels_to_int(sums) -> int:
@@ -131,9 +132,10 @@ def chunk_stats(audio: torch.Tensor, n_frames: torch.Tensor,
                 cfg: PipelineConfig):
     """Fused stats pass of one chunk, per shift row: (cmax (S,) f32 max
     |STFT| over valid frames, cmin (S,) f32 min (+inf when none), sums
-    (S, 6) int64 exact level sums of log(max(mag, tiny)), resmax 0-d f32:
-    the max split residual, 0 unless a log output falls below 2^-34 in
-    magnitude, which f32 log cannot produce; checked on the host)."""
+    (S, 6) int64 exact level sums of log(max(mag, tiny)), resmax (S,) f32:
+    each row's max split residual, 0 unless a log output falls below
+    2^-34 in magnitude, which f32 log cannot produce; checked on the host
+    for each source's own rows)."""
     mag = _mag(audio, cfg)
     vmask = _vmask(mag, n_frames)
     cmax = torch.where(vmask, mag, 0.0).amax(dim=(1, 2))
@@ -151,8 +153,8 @@ def chunk_stats_below(audio: torch.Tensor, n_frames: torch.Tensor,
 
     Returns (cnt (S,) int64 entries below the floor, bsums (S, 6) int64
     their exact level sums, lfsplit (S, 6) int64 the exact split of
-    log(floor), resmax 0-d f32).  The host adds cnt*lf - bsums, all in
-    integers."""
+    log(floor), resmax (S,) f32 each row's max split residual).  The host
+    adds cnt*lf - bsums, all in integers."""
     mag = _mag(audio, cfg)
     vmask = _vmask(mag, n_frames)
     floor = torch.clamp(gmax.to(mag.device), min=1e-37)[:, None, None] / 1e6
@@ -165,7 +167,7 @@ def chunk_stats_below(audio: torch.Tensor, n_frames: torch.Tensor,
     ln0, ln1, ln2, rn = _split3(torch.clamp(-lf, min=0.0))
     lfsplit = torch.stack([lp0, lp1, lp2, ln0, ln1, ln2],
                           dim=-1).to(torch.int64)
-    resmax = torch.maximum(res1, torch.maximum(rp.amax(), rn.amax()))
+    resmax = torch.maximum(res1, torch.maximum(rp, rn))
     return cnt, bsums, lfsplit, resmax
 
 

@@ -80,8 +80,9 @@ Phases (any failure exits non-zero before the result line):
      peak); its hashes equal eager and replayed in turns, the reversed
      file (same length) captures no key, one chunk's stats and peaks
      host dispatch eager against replay, K1f and K2 once a peaks replay
-     (torch.profiler); equal at 8,192- and 2,048-frame
-     chunks, Jaccard > 0.9 against the in-memory path; then
+     (torch.profiler); four long WAVs hashed as one group (K1f launched
+     once a chunk for all four) equal each hashed alone; equal at 8,192-
+     and 2,048-frame chunks, Jaccard > 0.9 against the in-memory path; then
      `new` on it and two songs as a subprocess (the long file must stream)
      and 10 s excerpts from 0:30, 59:00 and 1:58:00 matched at rank 0 with
      the offset of their start modulo maxtime
@@ -2919,6 +2920,12 @@ def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
     # a second long file of the same length, for the keys it should reuse
     long2 = os.path.join(d, "long_reversed.wav")
     audio_write_wav(long2, x[::-1].copy(), SR)
+    # and two shorter ones, for a group of four
+    group = [long_wav, long2]
+    for name, part in (("long_head", x[: len(x) * 3 // 4]),
+                       ("long_tail", x[len(x) // 3:])):
+        group.append(os.path.join(d, f"{name}.wav"))
+        audio_write_wav(group[-1], part, SR)
     del x
     print(f"streaming: wrote a {long_sec:g} s WAV "
           f"({os.path.getsize(long_wav) / 1e6:.1f} MB) in "
@@ -2945,6 +2952,7 @@ def phase_streaming(torch, rec: dict, paths: dict, dev, long_sec=7200.0,
           f"{peak_stream / 2**20:.1f} MiB; launches {launches}")
 
     streaming_graphs(torch, an, long_wav, long2, h8192, dev)
+    streaming_group(torch, an, group, h8192, dev)
 
     t0 = time.time()
     h2048 = an.wavfile2hashes_streaming(long_wav, chunk_frames=2048)
@@ -3041,7 +3049,7 @@ def streaming_graphs(torch, an, long_wav: str, long2: str, h8192, dev,
     # one chunk's passes, host dispatch eager against replay
     cfg = an.config
     src = STM.open_stream_source(long_wav, an.target_sr)
-    rd = STM._ChunkReader(src, cfg, an.stream_chunk_frames, dev)
+    rd = STM._ChunkReader([src], cfg, an.stream_chunk_frames, dev)
     audio, nf, _nf = rd.chunk_dev(1)
     src.close()
     S = len(rd.offs)
@@ -3049,7 +3057,7 @@ def streaming_graphs(torch, an, long_wav: str, long2: str, h8192, dev,
     zs, ones = (torch.full((S,), v, dtype=torch.float32, device=dev)
                 for v in (0.0, 1.0))
     gvec = CP.gauss_vector_on(cfg, dev)
-    nbytes = STM._chunk_bytes(rd, cfg)
+    nbytes = STM._chunk_bytes(1, rd.Nc, cfg)
 
     def peaks():
         return sg.peaks((audio, nf, ones, zs, z, z, z), (gvec,),
@@ -3082,6 +3090,51 @@ def streaming_graphs(torch, an, long_wav: str, long2: str, h8192, dev,
           f"dispatch ms (median of 50 calls in 5 rounds) "
           f"{ {k: round(v, 3) for k, v in med.items()} }; one peaks replay "
           f"ran {seen} (torch.profiler)")
+
+
+def streaming_group(torch, an, wavs: list, h_first, dev) -> None:
+    """Four long WAVs hashed as one group (Analyzer.wavfiles2hashes_streaming:
+    their rows in one stats pass and one peaks pass) equal each hashed
+    alone, with one group of 4 files counted and K1f launched once a chunk
+    for all four."""
+    from audfprint_torch.utils import timing
+
+    alone, walls = [h_first], []
+    for w in wavs[1:]:
+        t0 = time.perf_counter()
+        alone.append(an.wavfile2hashes_streaming(w))
+        walls.append(time.perf_counter() - t0)
+    an.wavfiles2hashes_streaming(wavs)              # the group's keys, warm
+    _counts_zero()
+    timing.TRACER.reset()
+    timing.TRACER.on = True
+    try:
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        got = an.wavfiles2hashes_streaming(wavs)
+        _sync(torch, dev)
+        t_group = time.perf_counter() - t0
+    finally:
+        timing.TRACER.on = False
+    c = dict(timing.TRACER.counters)
+    timing.TRACER.reset()
+    launches = _counts()
+    for w, g, h in zip(wavs, got, alone):
+        require(not isinstance(g, Exception), f"{w}: {g}")
+        require(np.array_equal(g[0], h),
+                f"{os.path.basename(w)}: its hashes in a group of "
+                f"{len(wavs)} differ from its hashes alone")
+    require((c.get("stream.groups"), c.get("stream.group_files"))
+            == (1, len(wavs)), f"not one group of {len(wavs)} files: {c}")
+    nchunks = c["stream.chunks"] // 2
+    require(launches.get("prune_fwd_carry") == nchunks,
+            f"K1f launched {launches.get('prune_fwd_carry')} times for "
+            f"{nchunks} chunks of the group")
+    print(f"streaming group [{nvidia_smi_line()}]: {len(wavs)} WAVs "
+          f"({[len(h) for h in alone]} hashes) equal alone and in one "
+          f"group; {nchunks} chunks a pass, K1f {launches['prune_fwd_carry']}"
+          f" launches; group {t_group:.3f} s against "
+          f"{sum(walls):.3f} s for the last {len(walls)} alone")
 
 
 def _key_shapes(key) -> list:

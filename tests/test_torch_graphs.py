@@ -474,13 +474,13 @@ def test_streamed_file_beside_a_capture(db, recorded, monkeypatch,
          *paths])
     an = cli.setup_analyzer(args, "cpu")
     streamed = []
-    real = an.wavfile2hashes_streaming
+    real = an.wavfiles2hashes_streaming
 
-    def watched(name):
+    def watched(names):
         streamed.append((threading.current_thread(), set(CAPTURING)))
-        return real(name)
+        return real(names)
 
-    monkeypatch.setattr(an, "wavfile2hashes_streaming", watched)
+    monkeypatch.setattr(an, "wavfiles2hashes_streaming", watched)
     m = M.Matcher(device="cpu", verbose=0)
     lines: list = []
     cli.do_match(db["ht"], an, m, paths, args, lines.append, Stages())

@@ -261,8 +261,8 @@ def _pinned_stats(path, cfg):
     pinning them makes both packages whiten with the same two floats."""
     src = STM.open_stream_source(path, SR)
     try:
-        gmax, mean = STM._stats_pass(STM._ChunkReader(src, cfg, 1 << 14, CPU),
-                                     cfg)
+        gmax, mean = STM._stats_pass(
+            STM._ChunkReader([src], cfg, 1 << 14, CPU), cfg)
     finally:
         src.close()
     return [(float(g), float(m)) for g, m in zip(gmax, mean)]

@@ -440,14 +440,14 @@ def test_two_stage_captures_on_the_dispatching_thread(db, recorded,
         threads.add(threading.current_thread())
         return real_record(fn, device, pool)
 
-    real_stream = an.wavfile2hashes_streaming
+    real_stream = an.wavfiles2hashes_streaming
 
-    def watched_stream(name):
+    def watched_stream(names):
         streamed.append((threading.current_thread(), set(CAPTURING)))
-        return real_stream(name)
+        return real_stream(names)
 
     monkeypatch.setattr(graphs, "_record", watched_record)
-    monkeypatch.setattr(an, "wavfile2hashes_streaming", watched_stream)
+    monkeypatch.setattr(an, "wavfiles2hashes_streaming", watched_stream)
     m = M.Matcher(device="cpu", verbose=0)
     lines: list = []
     cli.do_match(db["ht"], an, m, paths, args, lines.append, Stages())

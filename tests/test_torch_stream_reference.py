@@ -174,7 +174,7 @@ def test_route_spans_and_counters(wavs, tracer):
     STM.wavfile2hashes_streaming(paths[0], CFG, SR, CPU, 256)
     sm = tracer.summary()
     src = STM.open_stream_source(paths[0], SR)
-    nchunks = STM._ChunkReader(src, CFG, 256, CPU).nchunks
+    nchunks = STM._ChunkReader([src], CFG, 256, CPU).nchunks
     src.close()
     c = sm["counters"]
     assert set(SPANS) <= set(sm["spans"])
@@ -196,7 +196,7 @@ def test_uncached_reader_reads_every_chunk_again(wavs, tracer):
     paths, _x = wavs
     src = STM.open_stream_source(paths[0], SR)
     try:
-        rd = STM._ChunkReader(src, CFG, 256, CPU, cache_bytes=0)
+        rd = STM._ChunkReader([src], CFG, 256, CPU, cache_bytes=0)
         tracer.on = True
         gmax, mean = STM._stats_pass(rd, CFG)
         STM._peaks_pass(rd, CFG, gmax, mean)
